@@ -71,9 +71,11 @@ def _load_pset(prefix: str, z, dtype, device, score: float) -> ParamSet:
     return ParamSet(params=params, post=post, priors=t("priors"), score=score)
 
 
-def load_model(path: str, device="cpu") -> GPzModel:
+def load_model(path: str, device=None) -> GPzModel:
     """Load a GPzModel saved by either package's save_model; parameters
-    land on `device` in the checkpoint's cfg.dtype."""
+    land on `device` (None: the CUDA device; without one torch's own error
+    is raised) in the checkpoint's cfg.dtype."""
+    device = torch.device("cuda" if device is None else device)
     with np.load(path, allow_pickle=False) as z:
         header = json.loads(str(z["__header__"]))
         if header["format_version"] != _FORMAT_VERSION:

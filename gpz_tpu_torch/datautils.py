@@ -6,6 +6,8 @@ Host-side helpers mirroring the reference's data plumbing:
   * `split`     — random train/valid/test masks, ref GPz/sample.m
   * `get_omega` — cost-sensitive weights, ref GPz/getOmega.m
   * `normalization_stats` — NaN-aware muX/sdX + muY, ref GPz/init.m:22-43
+  * `pca_whiten_np`, `fill_linear_np` — NaN-aware PCA whitening and
+    Gaussian-conditional imputation for init, ref GPz/pca.m, fillLinear.m
 """
 
 from __future__ import annotations
@@ -114,6 +116,39 @@ def get_omega(Y, method: str = "normal", bin_width: Optional[float] = None):
     elif method == "normal":
         return np.ones(n)
     raise ValueError(f"unknown omega method {method!r}")
+
+
+def pca_whiten_np(X: np.ndarray):
+    """Host-side NaN-aware PCA whitening (ref GPz/pca.m): (mu, cov, Ti)."""
+    n = X.shape[0]
+    missing = np.isnan(X)
+    Xz = np.where(missing, 0.0, X)
+    counts = (~missing).sum(axis=0)
+    mu = Xz.sum(axis=0) / counts
+    Xc = np.where(missing, 0.0, X - mu[None, :])
+    Mc = missing.astype(np.float64)
+    cov = (Xc.T @ Xc) / (n - Mc.T @ Mc)
+    evals, U = np.linalg.eigh(n * cov)
+    evals = np.abs(evals)
+    order = np.argsort(-evals)
+    U, evals = U[:, order], evals[order]
+    S = np.sqrt(evals / (n - 1))
+    Ti = S[:, None] * U.T
+    return mu, cov, Ti
+
+
+def fill_linear_np(X: np.ndarray, mu: np.ndarray, cov: np.ndarray):
+    """Host-side Gaussian-conditional imputation (ref GPz/fillLinear.m) as
+    one masked batched solve."""
+    mask = ~np.isnan(X)
+    Xz = np.where(mask, X, 0.0)
+    r = np.where(mask, Xz - mu[None, :], 0.0)
+    m = mask.astype(np.float64)
+    outer = m[:, :, None] * m[:, None, :]
+    d = X.shape[1]
+    A = cov[None] * outer + np.eye(d)[None] * (1.0 - m)[:, :, None]
+    y = np.linalg.solve(A, r[..., None])[..., 0]
+    return mu[None, :] + y @ cov
 
 
 def normalization_stats(X, Y, training=None, normalize: bool = True):

@@ -1,5 +1,5 @@
-"""Numerics substrate: robust PSD factorizations and batched tiny (d x d)
-solves (the parts of gpz_tpu.linalg that prediction uses).
+"""Numerics substrate: robust PSD factorizations and solves, and batched tiny
+(d x d) solves (the parts of gpz_tpu.linalg that prediction and training use).
 
 The d-unrolled functions keep gpz_tpu's operation order term for term, so in
 float64 they agree with it to rounding. Non-PD inputs give NaN, as JAX's
@@ -25,11 +25,12 @@ def _cholesky_or_nan(A: torch.Tensor) -> torch.Tensor:
 def safe_cholesky(A: torch.Tensor) -> torch.Tensor:
     """Cholesky of PSD `A` (batched, [..., n, n]) with escalating jitter.
 
-    One factorization at zero jitter is the common case. If any factor is
-    non-finite, the jitter ladder is walked on a detached copy until every
-    factor is finite, and one differentiable factorization is taken at that
-    level. If every level fails, NaNs propagate (ref minFunc.m:963
-    isLegal/Armijo-fallback role).
+    One factorization at zero jitter is the common case, and its finiteness
+    check is the call's one host sync. If any factor is non-finite, every
+    level of the jitter ladder is factored on a detached copy, one more sync
+    reads which levels are finite, and one differentiable factorization is
+    taken at the first such level. If every level fails, NaNs propagate (ref
+    minFunc.m:963 isLegal/Armijo-fallback role).
     """
     L0 = _cholesky_or_nan(A)
     if bool(torch.isfinite(L0).all()):
@@ -39,16 +40,42 @@ def safe_cholesky(A: torch.Tensor) -> torch.Tensor:
         As = A.detach()
         scale = As.diagonal(dim1=-2, dim2=-1).abs().mean(-1)
         scale = torch.clamp(scale, min=1.0)[..., None, None]
-        for jitter in _JITTERS[1:]:
-            L = _cholesky_or_nan(As + jitter * scale * eye)
-            if bool(torch.isfinite(L).all()):
-                break
-    return _cholesky_or_nan(A + jitter * scale * eye)
+        finite = torch.stack([
+            torch.isfinite(_cholesky_or_nan(As + jitter * scale * eye)).all()
+            for jitter in _JITTERS[1:]
+        ]).tolist()
+    level = finite.index(True) if True in finite else len(finite) - 1
+    return _cholesky_or_nan(A + _JITTERS[1 + level] * scale * eye)
 
 
 def chol_logdet(L: torch.Tensor) -> torch.Tensor:
     """log|A| from its Cholesky factor (batched)."""
     return 2.0 * torch.sum(torch.log(L.diagonal(dim1=-2, dim2=-1)), dim=-1)
+
+
+def chol_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve A X = B given L = chol(A) (batched)."""
+    Y = torch.linalg.solve_triangular(L, B, upper=False)
+    return torch.linalg.solve_triangular(L.transpose(-1, -2), Y, upper=True)
+
+
+def solve_psd(A: torch.Tensor, B: torch.Tensor):
+    """Solve A X = B for PSD A; returns (X, logdet A)."""
+    L = safe_cholesky(A)
+    return chol_solve(L, B), chol_logdet(L)
+
+
+def solve_w_logdet(SIGMA: torch.Tensor, rhs: torch.Tensor):
+    """(w, logdet) for the batched PSD system SIGMA_k w_k = rhs_k.
+
+    SIGMA (k, m, m); rhs (m, k). Returns w (m, k), logdet (k,).
+    Differentiable by autograd through the factorization and the triangular
+    solves: float64 products are exact on the CPU and on CUDA, so gpz_tpu's
+    hand-written cotangents for this function have no counterpart here.
+    """
+    L = safe_cholesky(SIGMA)
+    w = chol_solve(L, rhs.transpose(0, 1)[..., None])[..., 0]   # (k, m)
+    return w.transpose(0, 1), chol_logdet(L)
 
 
 def unrolled_cholesky(A: torch.Tensor) -> torch.Tensor:

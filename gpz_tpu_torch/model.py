@@ -1,23 +1,34 @@
-"""Model containers and the predict entry point (gpz_tpu.model): a model is
-normalization stats plus two parameter sets, `last` and `best`, each with
-its derived posterior state (ref init.m:106-120, train.m:53-80).
+"""Model lifecycle: init -> train -> predict (gpz_tpu.model; ref GPz/init.m,
+train.m, predict.m).
 
-Training (init / train) comes with the next slice; a model comes from
-checkpoint.load_model.
+Host-side orchestration around the device computations. A model is
+normalization stats plus two parameter sets, `last` (current theta) and
+`best` (validation-selected theta), each with its derived posterior state
+(ref init.m:106-120, train.m:53-80). `train` may be called repeatedly: it
+restarts from `last` and preserves `best` across calls (ref train.m:8-11).
+
+`init` and `checkpoint.load_model` place a model on the CUDA device unless
+told otherwise; `train` and `predict` run where the model's parameters are.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from gpz_tpu_torch.config import ModelConfig, not_ported
+from gpz_tpu_torch.config import ModelConfig, TrainConfig, not_ported
+from gpz_tpu_torch.dataset import Dataset
 from gpz_tpu_torch.params import GPzParams
-from gpz_tpu_torch.objective import Posterior
+from gpz_tpu_torch.objective import (
+    Posterior, holdout_metrics, nlog_ml, posterior,
+)
+from gpz_tpu_torch.prior import get_prior
+from gpz_tpu_torch.optim import minimize
 from gpz_tpu_torch import datautils
 from gpz_tpu_torch import predict as predict_mod
 
@@ -67,6 +78,317 @@ class Prediction:
     beta_i: np.ndarray
     gamma: np.ndarray
     phi: np.ndarray
+
+
+class _LiveRowPrinter:
+    """Streamed per-iteration table row (ref GPz/callBack.m:16-46), the
+    optimizer's `iter_callback`: a long run shows progress, and early
+    stopping approaching, live. The `[...]` brackets mark a new validation
+    best (callBack.m:26-34)."""
+
+    def __init__(self, has_valid: bool):
+        self.has_valid = has_valid
+        self.t0 = time.perf_counter()
+
+    def __call__(self, it, f, opt_cond, step, score, improved, extras):
+        if it == 0:
+            self.t0 = time.perf_counter()
+            if self.has_valid:
+                print("\tIter\tlogML/n\t\tTrain RMSE\tTrain MLL"
+                      "\tValid RMSE\tValid MLL\tTime", flush=True)
+            else:
+                print("\tIter\tlogML/n\t\tTime", flush=True)
+        dt = time.perf_counter() - self.t0
+        if self.has_valid:
+            vr = f"{float(extras['valid_rmse']):.5e}"
+            vl = f"{float(extras['valid_ll']):.5e}"
+            if improved:
+                vr, vl = f"[{vr}]", f"[{vl}]"
+            print(
+                f"\t{it}\t{-float(f):.5e}\t"
+                f"{float(extras['train_rmse']):.5e}\t"
+                f"{float(extras['train_ll']):.5e}\t{vr}\t{vl}\t{dt:.2f}",
+                flush=True,
+            )
+        else:
+            print(f"\t{it}\t{-float(f):.5e}\t{dt:.2f}", flush=True)
+
+
+def _print_trace(fit_info, has_valid):
+    """Post-hoc iteration table (ref GPz/callBack.m:16-46)."""
+    tr = fit_info["trace"]
+    n_it = fit_info["iterations"]
+    if has_valid:
+        print("\tIter\tlogML/n\t\tTrain RMSE\tTrain MLL\tValid RMSE"
+              "\tValid MLL")
+        ex = tr["extras"]
+        for i in range(n_it + 1):
+            print(
+                f"\t{i}\t{-tr['f'][i]:.5e}\t{ex['train_rmse'][i]:.5e}"
+                f"\t{ex['train_ll'][i]:.5e}\t{ex['valid_rmse'][i]:.5e}"
+                f"\t{ex['valid_ll'][i]:.5e}"
+            )
+    else:
+        print("\tIter\tlogML/n")
+        for i in range(n_it + 1):
+            print(f"\t{i}\t{-tr['f'][i]:.5e}")
+    print(f"\t[{fit_info['iterations']} iters, "
+          f"{fit_info['fun_evals']} evals, status={fit_info['status']}]")
+
+
+def _make_dataset(Xn, Yc, psi, omega, rows, dtype, device) -> Dataset:
+    def dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+
+    Xr = Xn[rows]
+    mask = ~np.isnan(Xr)
+    return Dataset(
+        X=dev(np.where(mask, Xr, 0.0)),
+        mask=torch.as_tensor(mask, device=device),
+        omega=dev(omega[rows]),
+        Y=None if Yc is None else dev(Yc[rows]),
+        psi=None if psi is None else dev(psi[rows]),
+    )
+
+
+def _complete(data: Dataset, cfg: ModelConfig) -> bool:
+    """All rows observed? Anything else is not ported for training."""
+    complete = bool(data.mask.all())
+    if not complete:
+        raise not_ported("training on rows with missing values")
+    if not cfg.full_cov:
+        raise not_ported(f"training the diagonal family ({cfg.method})")
+    return complete
+
+
+def init(
+    X,
+    Y,
+    method: str = "VL",
+    m: int = 100,
+    *,
+    heteroscedastic: bool = True,
+    normalize: bool = True,
+    omega=None,
+    training=None,
+    psi=None,
+    seed: int = 0,
+    dtype: str = "float32",
+    solve_dtype: str = "auto",
+    solve_mode: str = "auto",
+    device=None,
+) -> GPzModel:
+    """Build and initialize a GPz model (ref GPz/init.m) on `device` (None:
+    the CUDA device; without one torch's own error is raised).
+
+    Initialization heuristics match the reference, and the arrays match
+    gpz_tpu.init's for the same seed:
+      * centers drawn uniform in the PCA-whitened unit cube (init.m:57-59)
+      * length scales from the mean-distance heuristic over linearly imputed
+        data: gamma = sqrt(0.5 m^(1/d) / mean Dxy(Xl, P)) (init.m:61-62)
+      * b = log var(Y), lnAlpha = -log var(Y) (init.m:54-55)
+    """
+    device = torch.device("cuda" if device is None else device)
+    X = np.asarray(X, dtype=np.float64)
+    Y = np.asarray(Y, dtype=np.float64)
+    if Y.ndim == 1:
+        Y = Y[:, None]
+    n, d = X.shape
+    k = Y.shape[1]
+    if d == 1:
+        method = method[0] + "L"  # ref init.m:12-14
+
+    cfg = ModelConfig(
+        m=m, d=d, k=k, method=method,
+        heteroscedastic=heteroscedastic, normalize=normalize, dtype=dtype,
+        solve_dtype=solve_dtype, solve_mode=solve_mode,
+    )
+    if training is None:
+        training = np.ones(n, dtype=bool)
+    if omega is None:
+        omega = np.ones(n)
+
+    muX, sdX, muY = datautils.normalization_stats(X, Y, training, normalize)
+    Xn = (X - muX[None, :]) / sdX[None, :]
+    Yc = Y - muY[None, :]
+    psi_c = datautils.fix_psi(psi, n, sdX, cfg.full_cov)
+
+    rng = np.random.default_rng(seed)
+    Xtr = Xn[training]
+    Ytr = Yc[training]
+
+    b = np.log(np.var(Ytr, axis=0, ddof=1))                 # (k,)
+    ln_alpha = np.broadcast_to(-b[None, :], (m, k)).copy()  # (m, k)
+
+    # PCA-whitened uniform centers (init.m:57-59), host-side NumPy
+    mu_p, cov_p, Ti = datautils.pca_whiten_np(Xtr)
+    P = (rng.random((m, d)) - 0.5) * math.sqrt(12.0)
+    P = P @ Ti + mu_p[None, :]
+
+    # length-scale heuristic on imputed data (init.m:61-62)
+    Xl = datautils.fill_linear_np(Xtr, mu_p, cov_p)
+    D = np.abs(
+        (Xl**2).sum(1)[:, None] + (P**2).sum(1)[None, :] - 2.0 * Xl @ P.T
+    )
+    gamma = np.sqrt(0.5 * m ** (1.0 / d) / D.mean(axis=0))  # (m,)
+
+    gshape = cfg.gamma_shape
+    if method in ("GL", "GD"):
+        g0 = np.full(gshape, gamma.mean())
+    elif method == "VL":
+        g0 = gamma[:, None]
+    elif method == "VD":
+        g0 = np.broadcast_to(gamma[:, None], gshape).copy()
+    elif method == "GC":
+        g0 = np.eye(d)[None, :, :] * gamma.mean()
+    else:  # VC
+        g0 = np.eye(d)[None, :, :] * gamma[:, None, None]
+    g0 = np.ascontiguousarray(np.broadcast_to(g0, gshape))
+
+    dt = getattr(torch, cfg.dtype)
+    arrays = {"P": P, "gamma": g0, "ln_alpha": ln_alpha, "b": b}
+    if heteroscedastic:
+        arrays["v"] = np.zeros((m, k))
+        arrays["ln_tau"] = np.zeros((m, k))
+    params = GPzParams.from_numpy(arrays, device, dt)
+
+    data = _make_dataset(Xn, Yc, psi_c, omega, training, dt, device)
+    post = posterior(params, data, cfg, complete=_complete(data, cfg))
+    priors = torch.full((m,), 1.0 / m, dtype=dt, device=device)
+
+    last = ParamSet(params=params, post=post, priors=priors)
+    best = ParamSet(params=params, post=post, priors=priors, score=-math.inf)
+    return GPzModel(cfg=cfg, muX=muX, sdX=sdX, muY=muY, last=last, best=best)
+
+
+def train(
+    model: GPzModel,
+    X,
+    Y,
+    *,
+    omega=None,
+    training=None,
+    validation=None,
+    psi=None,
+    max_iter: int = 200,
+    max_attempts: Optional[int] = None,
+    tc: Optional[TrainConfig] = None,
+    verbose: bool = True,
+) -> GPzModel:
+    """Fit hyperparameters by maximizing the log marginal likelihood
+    (ref GPz/train.m): L-BFGS with validation early stopping, on the device
+    that holds the model's parameters.
+
+    One float64 phase whatever cfg.dtype is: parameters and data are cast
+    up, trained, and `last` / `best` are stored back in cfg.dtype with their
+    posterior state (computed in float64). Continuation (ref train.m:8-11):
+    the run starts from `model.last` and threads both the previous best
+    score and the previous best parameters, so a run that never improves
+    keeps the old best.
+    """
+    t_start = time.perf_counter()
+    tc = tc or TrainConfig(max_iter=max_iter, max_attempts=max_attempts,
+                           verbose=verbose)
+    cfg = model.cfg
+    device = model.last.params.P.device
+    X = np.asarray(X, dtype=np.float64)
+    Y = np.asarray(Y, dtype=np.float64)
+    if Y.ndim == 1:
+        Y = Y[:, None]
+    n = X.shape[0]
+    if training is None:
+        training = np.ones(n, dtype=bool)
+    if omega is None:
+        omega = np.ones(n)
+
+    Xn = (X - model.muX[None, :]) / model.sdX[None, :]
+    Yc = Y - model.muY[None, :]
+    psi_c = datautils.fix_psi(psi, n, model.sdX, cfg.full_cov)
+
+    f64 = torch.float64
+    cfg64 = dataclasses.replace(cfg, dtype="float64")
+    data_tr = _make_dataset(Xn, Yc, psi_c, omega, training, f64, device)
+    complete_tr = _complete(data_tr, cfg)
+    has_valid = validation is not None and bool(np.any(validation))
+    if has_valid:
+        data_va = _make_dataset(Xn, Yc, psi_c, omega, validation, f64, device)
+        complete_va = _complete(data_va, cfg)
+
+    flat0, unravel = model.last.params.astype(f64).flatten()
+    x_best0 = model.best.params.astype(f64).flatten()[0]
+
+    def fun(flat):
+        flat = flat.detach().requires_grad_(True)
+        with torch.enable_grad():
+            nlml, aux = nlog_ml(unravel(flat), data_tr, cfg64,
+                                complete=complete_tr)
+            grad, = torch.autograd.grad(nlml, flat)
+        return nlml.detach(), grad, aux
+
+    score_fn = None
+    if has_valid:
+        def score_fn(flat, aux):
+            rmse, ll = holdout_metrics(unravel(flat), aux.w, data_va, cfg64,
+                                       complete=complete_va)
+            return ll, {
+                "valid_rmse": rmse,
+                "valid_ll": ll,
+                "train_rmse": aux.train_rmse,
+                "train_ll": aux.train_ll,
+            }
+
+    res = minimize(
+        fun,
+        flat0,
+        history=tc.history,
+        max_iter=tc.max_iter,
+        opt_tol=tc.opt_tol,
+        prog_tol=tc.prog_tol,
+        c1=tc.c1,
+        c2=tc.c2,
+        max_ls=tc.max_ls,
+        score_fn=score_fn,
+        max_attempts=tc.max_attempts,
+        init_best_score=(model.best.score
+                         if math.isfinite(model.best.score) else None),
+        x_best0=x_best0,
+        iter_callback=_LiveRowPrinter(has_valid) if tc.verbose else None,
+    )
+
+    dt = getattr(torch, cfg.dtype)
+
+    def resolve(flat, score) -> ParamSet:
+        # derived state is computed in float64 and stored in the model dtype
+        params = unravel(flat)
+        post = posterior(params, data_tr, cfg64, complete=complete_tr)
+        priors = get_prior(params, data_tr, cfg64, complete=complete_tr)
+        return ParamSet(
+            params=unravel(flat.to(dt).clone()),
+            post=Posterior(w=post.w.to(dt), iSigma_w=post.iSigma_w.to(dt),
+                           logdet=post.logdet.to(dt)),
+            priors=priors.to(dt),
+            score=score,
+        )
+
+    last = resolve(res.x, res.best_score if not has_valid else -math.inf)
+    best = resolve(res.x_best, res.best_score)
+
+    fit_info = {
+        "iterations": res.iterations,
+        "fun_evals": res.fun_evals,
+        "status": res.status,
+        "final_nlml": res.f,
+        "seconds": time.perf_counter() - t_start,
+        "trace": res.trace,
+    }
+    if tc.verbose:
+        _print_trace(fit_info, has_valid)
+
+    return GPzModel(
+        cfg=cfg, muX=model.muX, sdX=model.sdX, muY=model.muY,
+        last=last, best=best, fit_info=fit_info,
+    )
 
 
 def predict(

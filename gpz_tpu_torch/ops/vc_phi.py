@@ -1,19 +1,27 @@
-"""Full-covariance (GC/VC) design matrix on complete rows: a CUDA kernel for
-Hopper and its plain PyTorch twin.
+"""Full-covariance (GC/VC) design matrix on complete rows and its gradient: a
+pair of CUDA kernels for Hopper and their plain PyTorch twins.
 
 For every (sample i, basis j) pair, with A = Psi_i + Sigma_j,
 
     lnPHI_ij = -1/2 Delta' A^-1 Delta + 1/2 log|Sigma_j| - 1/2 log|A|
 
-The kernel (csrc/vc_phi.cu) replaces gpz_tpu/ops/vc_phi.py::_fwd_kernel; its
-source note says what bounds it and why its design is simple. It is built
-with nvcc at first use into gpz_tpu_torch/_build/, keyed by a hash of the
-source and the flags, and loaded with ctypes.
+and, for a cotangent g (n, m), with h = A^-1 Delta,
 
-`vc_lnphi_complete` launches the kernel for CUDA tensors and runs
-`vc_lnphi_plain` for CPU tensors; nothing falls back from one to the other.
-Forward only: the backward kernel and the autograd.Function come with the
-training path, so inputs that require a gradient are refused.
+    dP_j = sum_i g_ij h_ij        dSigma_j = sum_i g_ij (h h' - A^-1) / 2
+    d logdet_Sigma_j = sum_i g_ij / 2
+
+The kernels (csrc/vc_phi.cu) replace gpz_tpu/ops/vc_phi.py::_fwd_kernel and
+::_bwd_kernel; the source note says what bounds them and why their design is
+simple. They are built with nvcc at first use into gpz_tpu_torch/_build/,
+keyed by a hash of the source and the flags, and loaded with ctypes.
+
+`vc_lnphi_complete` is differentiable in P, Sigma and logdet_Sigma through
+the autograd.Function `VcLnPhi`; X and psi are data, and asking for their
+gradient raises. For CUDA tensors forward and backward launch the kernels;
+for CPU tensors they run `vc_lnphi_plain` and `vc_lnphi_bwd_plain`. Nothing
+falls back from one to the other. dSigma is the symmetric cotangent (half of
+an off-diagonal pair's derivative in each triangle), as gpz_tpu's kernel
+writes it, although only the lower triangle of Sigma is read.
 """
 
 from __future__ import annotations
@@ -25,10 +33,12 @@ import subprocess
 
 import torch
 
-from gpz_tpu_torch.linalg import quad_logdet_psd
+from gpz_tpu_torch.linalg import quad_logdet_psd, unrolled_inv_psd
 
-#: kernel launches by vc_lnphi_complete (callers may reset it to 0)
-LAUNCHES = 0
+#: launches of the forward and of the backward kernel (callers may reset
+#: them to 0); the backward's two passes count as one launch
+LAUNCHES_FWD = 0
+LAUNCHES_BWD = 0
 
 #: row block of the plain path: bounds its (rows, m, d, d) working set
 PHI_BLOCK_ROWS = 4096
@@ -87,23 +97,32 @@ def library() -> ctypes.CDLL:
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         )
         lib.gpz_vc_lnphi_fwd.restype = ctypes.c_int
+        lib.gpz_vc_lnphi_bwd.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        )
+        lib.gpz_vc_lnphi_bwd.restype = ctypes.c_int
+        lib.gpz_vc_lnphi_bwd_rows.argtypes = []
+        lib.gpz_vc_lnphi_bwd_rows.restype = ctypes.c_int
         lib.gpz_cuda_error_string.argtypes = [ctypes.c_int]
         lib.gpz_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
 
 
-def _check(X, psi, P, Sigma, logdet_Sigma):
-    """Validate what the kernel takes (on every device, so the CPU path
+def _check(X, psi, P, Sigma, logdet_Sigma=None, g=None):
+    """Validate what the kernels take (on every device, so the CPU path
     refuses exactly what the CUDA path would); returns (n, m, d)."""
-    args = {"X": X, "psi": psi, "P": P, "Sigma": Sigma,
-            "logdet_Sigma": logdet_Sigma}
+    args = {"X": X, "psi": psi, "P": P, "Sigma": Sigma}
+    if logdet_Sigma is not None:
+        args["logdet_Sigma"] = logdet_Sigma
+    if g is not None:
+        args["g"] = g
     if X.dim() != 2:
         raise ValueError(f"X must be (n, d), got {tuple(X.shape)}")
     n, d = X.shape
     m = P.shape[0] if P.dim() == 2 else -1
     want = {"X": (n, d), "psi": (n, d, d), "P": (m, d), "Sigma": (m, d, d),
-            "logdet_Sigma": (m,)}
+            "logdet_Sigma": (m,), "g": (n, m)}
     for name, t in args.items():
         if tuple(t.shape) != want[name]:
             raise ValueError(f"{name} must be {want[name]}, got "
@@ -119,20 +138,18 @@ def _check(X, psi, P, Sigma, logdet_Sigma):
         raise ValueError(f"d must be in 1..{D_MAX}, got {d}")
     if X.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {X.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args.values()):
-        raise RuntimeError("vc_lnphi_complete has no backward yet; call it "
-                           "under torch.no_grad()")
     return n, m, d
 
 
-def vc_lnphi_complete(X, psi, P, Sigma, logdet_Sigma):
-    """lnPHI (n, m) for complete data with full-covariance input noise.
+def _raise_on(err: int, what: str):
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           + library().gpz_cuda_error_string(err).decode())
 
-    X (n, d); psi (n, d, d); P (m, d); Sigma (m, d, d); logdet_Sigma (m,):
-    contiguous, one dtype (float32 or float64), one device, 1 <= d <= 8.
-    Only the lower triangles of psi and Sigma are read.
-    """
-    global LAUNCHES
+
+def _forward(X, psi, P, Sigma, logdet_Sigma):
+    """lnPHI by the kernel (CUDA tensors) or its plain twin (CPU tensors)."""
+    global LAUNCHES_FWD
     n, m, d = _check(X, psi, P, Sigma, logdet_Sigma)
     if X.device.type == "cpu":
         return vc_lnphi_plain(X, psi, P, Sigma, logdet_Sigma)
@@ -147,11 +164,72 @@ def vc_lnphi_complete(X, psi, P, Sigma, logdet_Sigma):
             int(X.dtype == torch.float64),
             torch.cuda.current_stream(X.device).cuda_stream,
         )
-    if err:
-        raise RuntimeError("vc_lnphi kernel launch failed: "
-                           + lib.gpz_cuda_error_string(err).decode())
-    LAUNCHES += 1
+    _raise_on(err, "vc_lnphi forward")
+    LAUNCHES_FWD += 1
     return out
+
+
+def vc_lnphi_bwd(X, psi, P, Sigma, g):
+    """(dP (m, d), dSigma (m, d, d)) for the cotangent g (n, m) of lnPHI, by
+    the backward kernel (CUDA tensors) or `vc_lnphi_bwd_plain` (CPU
+    tensors). Two calls on the same CUDA inputs give the same bits: the
+    kernel sums per 256-row tile and then over tiles, each in a fixed order,
+    with no atomics."""
+    global LAUNCHES_BWD
+    n, m, d = _check(X, psi, P, Sigma, g=g)
+    if X.device.type == "cpu":
+        return vc_lnphi_bwd_plain(X, psi, P, Sigma, g)
+    dP = torch.empty_like(P)
+    dSigma = torch.empty_like(Sigma)
+    if m == 0:
+        return dP, dSigma
+    if n == 0:
+        return dP.zero_(), dSigma.zero_()
+    lib = library()
+    tiles = -(-n // lib.gpz_vc_lnphi_bwd_rows())
+    partial = torch.empty((tiles, d + d * d, m), dtype=X.dtype,
+                          device=X.device)
+    with torch.cuda.device(X.device):
+        err = lib.gpz_vc_lnphi_bwd(
+            X.data_ptr(), psi.data_ptr(), P.data_ptr(), Sigma.data_ptr(),
+            g.data_ptr(), partial.data_ptr(), dP.data_ptr(),
+            dSigma.data_ptr(), n, m, d, int(X.dtype == torch.float64),
+            torch.cuda.current_stream(X.device).cuda_stream,
+        )
+    _raise_on(err, "vc_lnphi backward")
+    LAUNCHES_BWD += 1
+    return dP, dSigma
+
+
+class VcLnPhi(torch.autograd.Function):
+    """lnPHI with its analytic vector-Jacobian product; both directions go
+    to the kernels on CUDA tensors and to the plain twins on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, X, psi, P, Sigma, logdet_Sigma):
+        ctx.save_for_backward(X, psi, P, Sigma)
+        return _forward(X, psi, P, Sigma, logdet_Sigma)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        X, psi, P, Sigma = ctx.saved_tensors
+        dP, dSigma = vc_lnphi_bwd(X, psi, P, Sigma, g.contiguous())
+        return None, None, dP, dSigma, 0.5 * g.sum(0)
+
+
+def vc_lnphi_complete(X, psi, P, Sigma, logdet_Sigma):
+    """lnPHI (n, m) for complete data with full-covariance input noise.
+
+    X (n, d); psi (n, d, d); P (m, d); Sigma (m, d, d); logdet_Sigma (m,):
+    contiguous, one dtype (float32 or float64), one device, 1 <= d <= 8.
+    Only the lower triangles of psi and Sigma are read. Differentiable in P,
+    Sigma and logdet_Sigma; X and psi are data.
+    """
+    if torch.is_grad_enabled() and (X.requires_grad or psi.requires_grad):
+        raise RuntimeError("vc_lnphi_complete has no gradient in X or psi: "
+                           "they are data; detach them")
+    return VcLnPhi.apply(X, psi, P, Sigma, logdet_Sigma)
 
 
 def vc_lnphi_plain(X, psi, P, Sigma, logdet_Sigma):
@@ -164,3 +242,22 @@ def vc_lnphi_plain(X, psi, P, Sigma, logdet_Sigma):
         quad, logdet_A = quad_logdet_psd(A, Xb[:, None, :] - P[None])
         outs.append(-0.5 * quad + 0.5 * logdet_Sigma[None] - 0.5 * logdet_A)
     return torch.cat(outs)
+
+
+def vc_lnphi_bwd_plain(X, psi, P, Sigma, g):
+    """(dP, dSigma) in plain PyTorch, by the kernel's analytic formulas:
+    linalg.unrolled_inv_psd gives A^-1 on the (rows, m, d, d) systems, then
+    h = A^-1 Delta; PHI_BLOCK_ROWS rows at a time, blocks summed in order.
+    The upper triangle of dSigma is mirrored into the lower, as the kernel
+    writes it."""
+    dP = torch.zeros_like(P)
+    dSigma = torch.zeros_like(Sigma)
+    for r0 in range(0, X.shape[0], PHI_BLOCK_ROWS):
+        rows = slice(r0, r0 + PHI_BLOCK_ROWS)
+        gb = g[rows]
+        Ainv, _ = unrolled_inv_psd(psi[rows, None] + Sigma[None])
+        h = torch.einsum("nmab,nmb->nma", Ainv, X[rows, None, :] - P[None])
+        dP += torch.einsum("nm,nma->ma", gb, h)
+        dSigma += 0.5 * (torch.einsum("nm,nma,nmb->mab", gb, h, h)
+                         - torch.einsum("nm,nmab->mab", gb, Ainv))
+    return dP, dSigma.triu() + dSigma.triu(1).transpose(1, 2)

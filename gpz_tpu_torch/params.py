@@ -49,8 +49,31 @@ class GPzParams:
 
     def expand_gamma(self, cfg: ModelConfig) -> torch.Tensor:
         """Canonical gamma broadcast to the working shape: (m, d) for
-        GL/VL/GD/VD, (m, d, d) for GC/VC."""
+        GL/VL/GD/VD, (m, d, d) for GC/VC. Autograd sums the gradient over
+        the broadcast axes (ref GPz/GPz.m:215-225)."""
         return self.gamma.expand(cfg.gamma_expanded_shape)
+
+    def flatten(self):
+        """(flat vector, unravel): every present field raveled row-major and
+        concatenated in the order of FIELDS, which is the leaf order of
+        gpz_tpu's ravel_pytree, so a flat vector means the same parameters
+        in both packages. unravel(flat) gives GPzParams of views into flat
+        (autograd flows through them)."""
+        present = [(f, t) for f, t in self._items() if t is not None]
+        shapes = [(f, tuple(t.shape), t.numel()) for f, t in present]
+        flat = torch.cat([t.reshape(-1) for _, t in present])
+
+        def unravel(vec: torch.Tensor) -> "GPzParams":
+            if vec.shape != flat.shape:
+                raise ValueError(f"expected a vector of {flat.shape[0]} "
+                                 f"values, got {tuple(vec.shape)}")
+            out, at = {}, 0
+            for f, shape, size in shapes:
+                out[f] = vec[at:at + size].reshape(shape)
+                at += size
+            return GPzParams(**out)
+
+        return flat, unravel
 
     @classmethod
     def from_numpy(cls, arrays: dict, device, dtype: torch.dtype

@@ -6,6 +6,9 @@ complete rows.
     correction (Gaussian convolution, getPHI.m:84-87); with psi the pass runs
     through ops.vc_phi.vc_lnphi_complete, the CUDA kernel on the card
 
+Differentiable in P and gamma (the kernel pair carries the gradient through
+lnPHI; GC's broadcast gamma sums its gradient over the bases).
+
 Returns log-space quantities; exp happens at the caller:
   lnPHI (n, m)  log basis activations
   lnN   (n, m)  log *normalized* densities
@@ -69,8 +72,8 @@ def _log_phi_full(params, cfg, X, psi):
     # Sigma_j = iSig^-1 via the Cholesky factor (getPHI.m:77,86)
     eye = torch.eye(d, dtype=X.dtype, device=X.device).expand(m, d, d)
     Linv = torch.linalg.solve_triangular(L_iSig, eye, upper=False)
-    Sigma = Linv.transpose(-1, -2) @ Linv
-    ln_phi = vc_lnphi_complete(X, psi, P, Sigma, logdet_Sigma)
+    Sigma = (Linv.transpose(-1, -2) @ Linv).contiguous()
+    ln_phi = vc_lnphi_complete(X, psi, P.contiguous(), Sigma, logdet_Sigma)
     ln_n = ln_phi - 0.5 * logdet_Sigma[None, :] - 0.5 * d * _LN2PI
     return ln_phi, ln_n
 

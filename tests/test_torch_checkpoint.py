@@ -60,24 +60,24 @@ def assert_same_model(port_model, jax_model):
 
 
 def test_load_model_gives_jax_arrays():
-    assert_same_model(gpz_tpu_torch.load_model(CHECKPOINT),
+    assert_same_model(gpz_tpu_torch.load_model(CHECKPOINT, device="cpu"),
                       jckpt.load_model(CHECKPOINT))
 
 
 def test_save_model_round_trips_through_jax(tmp_path):
     path = str(tmp_path / "port.npz")
-    model = gpz_tpu_torch.load_model(CHECKPOINT)
+    model = gpz_tpu_torch.load_model(CHECKPOINT, device="cpu")
     gpz_tpu_torch.save_model(model, path)
     assert_same_model(model, jckpt.load_model(path))
     # and back
-    assert_same_model(gpz_tpu_torch.load_model(path), jckpt.load_model(path))
+    assert_same_model(gpz_tpu_torch.load_model(path, device="cpu"), jckpt.load_model(path))
 
 
 def test_from_numpy_carries_jax_weights():
     """Parameters carried across with from_numpy serve exactly what the
     loaded checkpoint serves, and to_numpy gives them back."""
     jmodel = jckpt.load_model(CHECKPOINT)
-    model = gpz_tpu_torch.load_model(CHECKPOINT)
+    model = gpz_tpu_torch.load_model(CHECKPOINT, device="cpu")
     arrays = {k: np.asarray(v)
               for k, v in dataclasses.asdict(jmodel.best.params).items()}
     params = GPzParams.from_numpy(arrays, "cpu", torch.float32)
@@ -157,3 +157,19 @@ def test_import_leaves_jax_out():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert gpz_tpu.__name__ == "gpz_tpu"  # the reference, imported here only
+
+
+def test_entry_points_default_to_the_gpu_and_never_to_the_cpu():
+    """load_model and init without a device go to the CUDA device: on a
+    machine without one they raise torch's error and return nothing that
+    lives on the CPU."""
+    if torch.cuda.is_available():
+        model = gpz_tpu_torch.load_model(CHECKPOINT)
+        assert model.best.params.P.device.type == "cuda"
+        return
+    rng = np.random.default_rng(0)
+    X, Y = rng.standard_normal((40, 2)), rng.standard_normal(40)
+    for call in (lambda: gpz_tpu_torch.load_model(CHECKPOINT),
+                 lambda: gpz_tpu_torch.init(X, Y, "VC", 4)):
+        with pytest.raises((RuntimeError, AssertionError), match="(?i)cuda"):
+            call()

@@ -3,6 +3,7 @@ d in {1, 3, 5, 8}: the d-unrolled functions keep JAX's operation order, so
 they agree to rounding."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -94,3 +95,58 @@ def test_non_pd_unrolled_gives_nan():
     for g, w in zip(got, want):
         np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
         assert np.isnan(g).all()
+
+
+# the (m x m) solve of the objective: values and gradients of two float64
+# Cholesky solves whose libraries differ (LAPACK through XLA and PyTorch)
+SOLVE = dict(rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("k,m", [(1, 6), (2, 9), (3, 1)])
+def test_solves_against_jax(k, m):
+    rng = np.random.default_rng(40 + m)
+    SIGMA = spd(rng, (k,), m)
+    rhs = rng.standard_normal((m, k))
+    B = rng.standard_normal((k, m, 4))
+    L = np.linalg.cholesky(SIGMA)
+    assert_same(*both("chol_solve", L, B), **SOLVE)
+    assert_same(*both("solve_psd", SIGMA, B), **SOLVE)
+    assert_same(*both("solve_w_logdet", SIGMA, rhs), **SOLVE)
+
+
+@pytest.mark.parametrize("k,m", [(1, 6), (2, 9)])
+def test_solve_w_logdet_gradient_against_jax(k, m):
+    """Native autograd through cholesky_ex / solve_triangular against
+    gpz_tpu's hand-written cotangents, for a cotangent in w and in logdet.
+    SIGMA enters symmetrized, so both sides see a symmetric perturbation."""
+    rng = np.random.default_rng(50 + m)
+    SIGMA = spd(rng, (k,), m)
+    rhs = rng.standard_normal((m, k))
+    cw = rng.standard_normal((m, k))
+    cl = rng.standard_normal(k)
+
+    def jloss(S, r):
+        w, ld = jl.solve_w_logdet(0.5 * (S + jnp.swapaxes(S, -1, -2)), r)
+        return jnp.sum(w * cw) + jnp.sum(ld * cl)
+
+    S = torch.from_numpy(SIGMA).requires_grad_(True)
+    r = torch.from_numpy(rhs).requires_grad_(True)
+    w, ld = tl.solve_w_logdet(0.5 * (S + S.transpose(-1, -2)), r)
+    loss = (w * torch.from_numpy(cw)).sum() + (ld * torch.from_numpy(cl)).sum()
+    gS, gr = torch.autograd.grad(loss, (S, r))
+    jS, jr = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(SIGMA),
+                                             jnp.asarray(rhs))
+    np.testing.assert_allclose(gS.numpy(), np.asarray(jS), **SOLVE)
+    np.testing.assert_allclose(gr.numpy(), np.asarray(jr), **SOLVE)
+
+
+def test_safe_cholesky_is_differentiable_at_its_jitter():
+    """A slightly indefinite matrix is factored at the first jitter level
+    that works, and the gradient flows through that factorization."""
+    rng = np.random.default_rng(60)
+    v = rng.standard_normal((4, 1))
+    R = torch.from_numpy(v @ v.T - 1e-9 * np.eye(4)).requires_grad_(True)
+    L = tl.safe_cholesky(R[None])[0]
+    assert torch.isfinite(L).all()
+    g, = torch.autograd.grad(tl.chol_logdet(L), R)
+    assert torch.isfinite(g).all() and g.abs().max() > 0

@@ -125,7 +125,7 @@ def jax_preds():
 @pytest.fixture(scope="module")
 def port_preds():
     _, X, psi, _ = golden_rows(synthetic_sdss, datautils.split)
-    model = gpz_tpu_torch.load_model(CHECKPOINT)
+    model = gpz_tpu_torch.load_model(CHECKPOINT, device="cpu")
     out = {}
     for dt in DTYPES:
         pred = gpz_tpu_torch.predict(X, model.astype(dt), psi=psi)
@@ -169,7 +169,7 @@ def test_missing_data_is_not_ported(with_psi):
     _, X, psi, _ = golden_rows(synthetic_sdss, datautils.split)
     X = X[:5].copy()
     X[2, 1] = np.nan
-    model = gpz_tpu_torch.load_model(CHECKPOINT)
+    model = gpz_tpu_torch.load_model(CHECKPOINT, device="cpu")
     with pytest.raises(NotImplementedError, match="missing data"):
         gpz_tpu_torch.predict(X, model, psi=psi[:5] if with_psi else None)
 
