@@ -11,9 +11,11 @@ Phases, each printing its own lines; any failure exits non-zero:
 3. kernel      vc_lnphi_complete (the CUDA forward kernel) against
                vc_lnphi_plain (the same function in plain PyTorch), both on
                the card: random well-conditioned inputs at tests/test_ops.py's
-               shapes in float64 and float32, and the two calls that
-               prediction makes at the trained photo-z point in float64; max
-               errors and median CUDA-event times. Also float32 at d=8
+               shapes in float64 and float32, and every shape that one real
+               3,000-row request of phase 5 launches (recorded from that
+               request; the shapes and their counts must be what the row
+               batches and the budgets imply); max errors and median
+               CUDA-event times. Also float32 at d=8
                with pivots ~1e-6 (the kernels take one logarithm of a product
                of reciprocal pivots, which must stay in range), a non-PD A
                and an exactly zero pivot (NaN exactly where the plain version
@@ -43,6 +45,28 @@ Phases, each printing its own lines; any failure exits non-zero:
                implies
 8. north star  (a report, not a gate) the same model continued for 175 more
                iterations; final nlml beside the target -2.67041538
+
+9. missing-serve  the same checkpoint serves 2 requests of 3,000 photo-z
+               test rows with psi = errs**2 after NaNs are injected from a
+               seed (25% of the rows lose band 0, 10% band 4, 5% both). Every
+               output finite, nu and gamma >= 0; the forward launches equal
+               what the calls imply (the mixture sums of the missing path go
+               through the kernel at both of their sites); the coverage
+               guard's readings and escalations; 64 rows, 16 of each pattern,
+               within MISSING_TOL of JAX's float64-mixture outputs in
+               tests/data/torch_port_golden_missing.npz; the kernel against
+               its plain version at every shape that one real request
+               launches, mixture sums included (recorded from that request);
+               the mixture sums in float32 against float64 (MIX_DTYPE)
+10. missing-objective  VC m=100 initialized on the 70,000 training rows after
+               injection: flat parameters, nlog_ml and its gradient on the
+               first 4,096 training rows (the masked pass) within MISSING_TOL
+               of JAX; one gradient evaluation at 70,000 rows timed, with its
+               launches and peak memory
+11. diag-train VD m=100 with psi (n, d), the injected NaNs and balanced cost
+               weights: init, 25 iterations, predict on the 12,000 test rows
+               with NaNs. Trace finite, f non-increasing, f at iterations
+               0..5 within MISSING_TOL of JAX's float64 trace
 
 With --profile, one warm gradient evaluation at the training shape is also
 traced with torch.profiler and its kernel table printed.
@@ -197,9 +221,10 @@ def shape_line(args):
     return f"n={n} m={args[2].shape[0]} d={d} {args[0].dtype}"
 
 
-def compare_kernel(name, args, tol):
+def compare_kernel(name, args, tol, plain_timing=None):
     """Forward kernel vs plain on the same card inputs; returns the max abs
-    error and both times."""
+    error and both times (`plain_timing`: median_ms options for a plain
+    version that takes seconds)."""
     import torch
     from gpz_tpu_torch.ops import vc_phi
 
@@ -218,7 +243,8 @@ def compare_kernel(name, args, tol):
     rec = {
         "max_abs_err": max_abs,
         "ms": median_ms(lambda: vc_phi.vc_lnphi_complete(*args)),
-        "plain_ms": median_ms(lambda: vc_phi.vc_lnphi_plain(*args)),
+        "plain_ms": median_ms(lambda: vc_phi.vc_lnphi_plain(*args),
+                              **(plain_timing or {})),
     }
     print(f"kernel {name}: {shape_line(args)} max_abs_err={max_abs:.3e} "
           f"(err/bound {worst:.3f}) kernel {rec['ms']:.4f} ms, "
@@ -279,47 +305,170 @@ def compare_backward(name, args, g, tol):
     return max_abs
 
 
-def slice_inputs(model, X, psi):
-    """The arguments of the two vc_lnphi_complete calls that one predict()
-    batch makes first (the PHI site, then the first pair-pass block),
-    recorded from a real predict() on the card."""
-    import gpz_tpu_torch
-
+def site_calls(fn):
+    """Run fn() with predict.vc_lnphi_complete recorded: (fn's result,
+    {(rows, bases): [launches, the arguments of the first]}), in the order
+    the shapes were first launched."""
     # the module, not the package's `predict` function of the same name
     predict_mod = importlib.import_module("gpz_tpu_torch.predict")
     real = predict_mod.vc_lnphi_complete
-    calls = []
+    sites = {}
 
     def record(*args):
-        calls.append(tuple(a.clone() for a in args))
+        shape = (args[0].shape[0], args[2].shape[0])
+        if shape not in sites:
+            sites[shape] = [0, tuple(a.clone() for a in args)]
+        sites[shape][0] += 1
         return real(*args)
 
     predict_mod.vc_lnphi_complete = record
     try:
-        gpz_tpu_torch.predict(X, model, psi=psi)
+        result = fn()
     finally:
         predict_mod.vc_lnphi_complete = real
-    return calls[0], calls[1]
+    return result, sites
 
 
-def predict_launches(cfg, rows: int) -> int:
-    """Forward launches of one predict() call: one PHI-site launch plus one
-    per pair-pass block, for every batch of model.predict's moments_batch
-    rows (f64 chain: 8-byte elements)."""
-    from gpz_tpu_torch.predict import PAIR_BUDGET, _block_size
+def compare_sites(prefix, sites, per):
+    """compare_kernel at every recorded shape of a serving path, with the
+    shape's launches and its bound; {name: record}."""
+    recs = {}
+    for (n, bases), (count, args) in sites.items():
+        name = f"{prefix}-{n}x{bases}"
+        slow = dict(trials=3, calls=2, warmup=1) if bases > 1000 else None
+        rec = compare_kernel(name, args, KERNEL_TOL["trained"],
+                             plain_timing=slow)
+        b = bound("fwd", n, bases, args[0].shape[1], "float64")
+        rec.update(shape=[n, bases], launches_per_request=count,
+                   bound_ms=b["bound_ms"])
+        print(f"site {name} d={args[0].shape[1]} f64: {count} launches per "
+              f"{per}; bound {b['bound_ms']:.5f} ms by {b['bound_by']} (bytes "
+              f"{b['bytes_ms']:.5f}, operations {b['ops_ms']:.5f}); kernel "
+              f"{rec['ms'] / b['bound_ms']:.2f}x its bound")
+        recs[name] = rec
+    return recs
 
-    bs = PAIR_BUDGET * 4 // 8 // (8 * cfg.m * cfg.d * cfg.d)
-    blocks = -(-cfg.m // _block_size(bs, cfg.m, cfg.d * cfg.d, itemsize=8))
-    return -(-rows // bs) * (1 + blocks)
+
+def complete_calls(cfg, rows: int):
+    """The moment calls of one predict() on `rows` complete rows with psi, as
+    moments_calls records them: one per row batch of model.predict."""
+    from gpz_tpu_torch.model import _moments_batch
+
+    bs = _moments_batch(cfg)
+    return [(min(bs, rows - start), True, 0, None)
+            for start in range(0, rows, bs)]
 
 
-def objective_at(flat, unravel, data, cfg):
+def moments_calls(fn):
+    """Run fn() with predict.predict_moments_full recorded: one (rows,
+    complete, mixture width, coverage or None) per call."""
+    predict_mod = importlib.import_module("gpz_tpu_torch.predict")
+    real = predict_mod.predict_moments_full
+    calls = []
+
+    def record(*args, **kw):
+        out = real(*args, **kw)
+        cfg, X, complete = args[3], args[4], args[7]
+        width = min(cfg.m, kw.get("mix_topl") or predict_mod.MIX_TOPL)
+        calls.append((X.shape[0], complete, width,
+                      float(out[5]) if kw.get("return_coverage") else None))
+        return out
+
+    predict_mod.predict_moments_full = record
+    try:
+        result = fn()
+    finally:
+        predict_mod.predict_moments_full = real
+    return result, calls
+
+
+def expected_sites(cfg, calls) -> dict:
+    """{(rows, bases): launches} of the forward kernel that moment calls
+    (rows, complete, mixture width, coverage) imply, derived here from the
+    two budgets alone. A budget counts float32 elements and the chain runs in
+    float64, so half as many elements fit.
+
+    Complete rows: one launch of the rows against the m bases (PHI), then
+    the pair pass in blocks of B basis indices, B the most that keeps
+    (rows, B, m) within PAIR_BUDGET: one launch per block against the
+    block's B * m pairs as bases. Missing values: the same two sites with B
+    from MISSING_PAIR_BUDGET, each a sum over `width` mixture components
+    whose rows go through the kernel together, as many components per launch
+    as keep (components * rows, bases) within MISSING_PAIR_BUDGET.
+    """
+    predict_mod = importlib.import_module("gpz_tpu_torch.predict")
+    pair_elems = predict_mod.PAIR_BUDGET // 2
+    mix_elems = predict_mod.MISSING_PAIR_BUDGET // 2
+    m = cfg.m
+    out = {}
+
+    def add(shape, times):
+        out[shape] = out.get(shape, 0) + times
+
+    for n, complete, width, _ in calls:
+        B = max(1, min(m, (pair_elems if complete else mix_elems) // (n * m)))
+        blocks = -(-m // B)
+        for bases, times in ((m, 1), (B * m, blocks)):
+            if complete:
+                add((n, bases), times)
+                continue
+            chunk = max(1, min(width, mix_elems // (n * bases)))
+            whole, rest = divmod(width, chunk)
+            add((chunk * n, bases), times * whole)
+            if rest:
+                add((rest * n, bases), times)
+    return out
+
+
+def site_counts(sites) -> dict:
+    return {shape: rec[0] for shape, rec in sites.items()}
+
+
+def expected_batches(X, rows_per_batch: int):
+    """[(rows, complete)] of the moment batches model.predict makes for X:
+    patterns in np.unique's order, each in batches of rows_per_batch."""
+    mask = ~np.isnan(X)
+    patterns, inverse = np.unique(mask, axis=0, return_inverse=True)
+    out = []
+    for pi in range(patterns.shape[0]):
+        n = int((inverse == pi).sum())
+        out += [(min(rows_per_batch, n - s), bool(patterns[pi].all()))
+                for s in range(0, n, rows_per_batch)]
+    return out
+
+
+def timed_predict(X, model, psi):
+    """(prediction, seconds) of one predict() call, synchronized."""
+    import torch
+    import gpz_tpu_torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred = gpz_tpu_torch.predict(X, model, psi=psi)
+    torch.cuda.synchronize()
+    return pred, time.perf_counter() - t0
+
+
+def count_launches(fn) -> int:
+    """cudaLaunchKernel calls of one fn() under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.key.startswith("cudaLaunchKernel"))
+
+
+def objective_at(flat, unravel, data, cfg, complete=True):
     """(nlml, flat gradient) of nlog_ml as host arrays."""
     import torch
     from gpz_tpu_torch.objective import nlog_ml
 
     flat = flat.detach().clone().requires_grad_(True)
-    nlml, _ = nlog_ml(unravel(flat), data, cfg, complete=True)
+    nlml, _ = nlog_ml(unravel(flat), data, cfg, complete=complete)
     grad, = torch.autograd.grad(nlml, flat)
     return float(nlml.detach()), grad.cpu().numpy()
 
@@ -408,13 +557,17 @@ def main(argv) -> int:
     import gpz_tpu_torch
     from gpz_tpu_torch import datautils, metrics
     from gpz_tpu_torch.data import synthetic_sdss
-    from gpz_tpu_torch.model import _make_dataset
+    from gpz_tpu_torch.model import _make_dataset, _moments_batch
     from gpz_tpu_torch.ops import vc_phi
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from make_torch_port_golden import (
-        GOLDEN_TOL, OBJECTIVE_ROWS, OUTPUTS, POINTS, TRACE_ITERS, TRAIN_TOL,
-        load_golden, load_golden_train, objective_rows, train_problem,
+        GOLDEN_TOL, MISSING_PATTERNS, MISSING_ROWS, MISSING_TOL,
+        OBJECTIVE_ROWS, OUTPUTS, POINTS, TRACE_ITERS, TRAIN_TOL,
+        inject_missing, load_golden, load_golden_missing, load_golden_train,
+        missing_serve_rows, missing_train_problem, objective_rows,
+        train_problem,
     )
+    predict_mod = importlib.import_module("gpz_tpu_torch.predict")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -457,7 +610,7 @@ def main(argv) -> int:
     rng = np.random.default_rng(0)
     random_cases = {}
     for dt_name, dt in (("float64", f64), ("float32", torch.float32)):
-        # tests/test_ops.py's shapes, the pair pass's (750 rows, B*m=800),
+        # tests/test_ops.py's shapes, a pair-pass block of 8 x 100 pairs,
         # and the ends of the range of d the kernels are compiled for
         for n, d, m in ((37, 3, 5), (300, 3, 7), (23, 3, 11), (750, 5, 800),
                         (33, 1, 40), (300, 8, 37)):
@@ -507,13 +660,18 @@ def main(argv) -> int:
     rows = np.where(test)[0]
     check(len(rows) == REQUESTS * REQUEST_ROWS,
           f"{len(rows)} test rows, expected {REQUESTS * REQUEST_ROWS}")
-    batch = rows[:750]
-    phi_args, pair_args = slice_inputs(model64, mags[batch], psi_all[batch])
-    slice_cases = [
-        compare_kernel("trained-phi-site", phi_args, KERNEL_TOL["trained"]),
-        compare_kernel("trained-pair-site", pair_args,
-                       KERNEL_TOL["trained"]),
-    ]
+    # every shape that phase 5's first request launches, from that request
+    first = rows[:REQUEST_ROWS]
+    _, serve_sites = site_calls(lambda: gpz_tpu_torch.predict(
+        mags[first], model32, psi=psi_all[first]))
+    want_sites = expected_sites(model32.cfg,
+                                complete_calls(model32.cfg, REQUEST_ROWS))
+    check(site_counts(serve_sites) == want_sites, "serving: one request "
+          f"launched {site_counts(serve_sites)}, the budgets imply "
+          f"{want_sites}")
+    serve_cases = compare_sites("serve", serve_sites,
+                                f"{REQUEST_ROWS}-row request")
+    phi_args = next(iter(serve_sites.values()))[1]
 
     # 4. backward kernel vs plain backward and autograd
     gen = torch.Generator(device=dev)
@@ -525,7 +683,7 @@ def main(argv) -> int:
         compare_backward(case, args, g, KERNEL_BWD_TOL[dt_name])
     g_phi = torch.randn(phi_args[0].shape[0], phi_args[2].shape[0],
                         dtype=f64, device=dev, generator=gen)
-    bwd_errs.append(compare_backward("trained-phi-site", phi_args, g_phi,
+    bwd_errs.append(compare_backward("serve-phi-site", phi_args, g_phi,
                                      KERNEL_BWD_TOL["trained"]))
 
     # 5. slice: 4 requests of 3,000 rows at the checkpoint's dtype
@@ -547,7 +705,7 @@ def main(argv) -> int:
               for k in OUTPUTS + ("phi",)), "non-finite prediction")
     check(mu.shape == (len(rows),) and sigma.min() > 0,
           "prediction shapes or variances wrong")
-    expected = REQUESTS * predict_launches(model32.cfg, REQUEST_ROWS)
+    expected = REQUESTS * sum(want_sites.values())
     rmse = metrics.rmse_curve(z[rows], mu, sigma)[-1]
     mll = metrics.cumulative_by_confidence(z[rows], mu, sigma,
                                            metrics.log_likelihood)[-1]
@@ -686,7 +844,8 @@ def main(argv) -> int:
     check(all(np.isfinite(getattr(pred, k_)).all() for k_ in OUTPUTS)
           and pred.sigma.min() > 0, "train: prediction with the freshly "
           "trained model is not finite with positive variance")
-    check(predict_l == (predict_launches(fitted.cfg, len(rows)), 0),
+    check(predict_l == (sum(expected_sites(fitted.cfg, complete_calls(
+        fitted.cfg, len(rows))).values()), 0),
           "train: predict's launch counts differ")
     print(f"train: predict on {len(rows)} test rows finite, test RMSE "
           f"{metrics.rmse_curve(z[rows], pred.mu[:, 0], pred.sigma[:, 0])[-1]:.6f}"
@@ -740,13 +899,6 @@ def main(argv) -> int:
               f"{bwd_rec[label]['plain_ms']:.4f} ms (bound "
               f"{bb['bound_ms']:.4f} ms by {bb['bound_by']}: bytes "
               f"{bb['bytes_ms']:.4f}, operations {bb['ops_ms']:.4f})")
-    for label, a in (("phi-site 750x100", phi_args),
-                     ("pair-site 750x800", pair_args)):
-        b = bound("fwd", a[0].shape[0], a[2].shape[0], a[0].shape[1],
-                  "float64")
-        print(f"bound {label} d=5 f64 fwd: {b['bound_ms']:.5f} ms by "
-              f"{b['bound_by']} (bytes {b['bytes_ms']:.5f}, operations "
-              f"{b['ops_ms']:.5f})")
 
     def fun(flat):
         return objective_at(flat, unravel_t, data_tr, fitted.cfg)
@@ -783,15 +935,255 @@ def main(argv) -> int:
         print(f"north-star: not run ({TRAIN_ITERS} iterations took "
               f"{train_s:.1f} s, budget {NORTH_STAR_BUDGET_S} s)")
 
+    # 9. missing-serve: 2 requests of 3,000 rows with injected NaNs
+    gm = load_golden_missing()
+    m_idx, Xs, psis, zs, picks = missing_serve_rows(synthetic_sdss,
+                                                    datautils.split)
+    check(np.array_equal(gm["rows"], m_idx[picks])
+          and len(picks) == MISSING_ROWS,
+          "golden rows with missing values differ from this data draw")
+    n_req = len(Xs) // REQUEST_ROWS
+    requests = [slice(r * REQUEST_ROWS, (r + 1) * REQUEST_ROWS)
+                for r in range(n_req)]
+    vc_phi.LAUNCHES_FWD = vc_phi.LAUNCHES_BWD = 0
+    mpreds, msecs, mcalls = [], [], []
+    for rq in requests:
+        (pred, sec), calls = moments_calls(
+            lambda: timed_predict(Xs[rq], model32, psis[rq]))
+        mpreds.append(pred)
+        msecs.append(sec)
+        mcalls.append(calls)
+    missing_launches = vc_phi.LAUNCHES_FWD
+    check(vc_phi.LAUNCHES_BWD == 0, "missing-serve launched the backward "
+          "kernel")
+    bs = _moments_batch(model32.cfg)
+    want_calls, want_launches = 0, 0
+    for rq, calls in zip(requests, mcalls):
+        batches = expected_batches(Xs[rq], bs)
+        escalated = [c for c in calls if c[2] == model32.cfg.m]
+        guarded = [c for c in calls if c[3] is not None]
+        check(sorted((c[0], c[1]) for c in calls if c not in escalated)
+              == sorted(batches), "missing-serve: the moment batches differ "
+              "from the patterns' groups")
+        check(len(guarded) == sum(1 for b in batches if not b[1])
+              and len(escalated) == sum(
+                  1 for c in guarded
+                  if c[3] < predict_mod.MIX_COVERAGE_MIN),
+              "missing-serve: the coverage guard did not read every batch "
+              "with missing values, or escalated another number than fell "
+              "below MIX_COVERAGE_MIN")
+        want_calls += len(calls)
+        want_launches += sum(expected_sites(model32.cfg, calls).values())
+    all_calls = [c for calls in mcalls for c in calls]
+    coverages = [c[3] for c in all_calls if c[3] is not None]
+    n_esc = sum(1 for c in all_calls if c[2] == model32.cfg.m)
+    n_nan = int(np.isnan(Xs).any(axis=1).sum())
+    for pred in mpreds:
+        check(all(np.isfinite(getattr(pred, k_)).all()
+                  for k_ in OUTPUTS + ("phi",)),
+              "missing-serve: non-finite prediction")
+        check(pred.nu.min() >= 0 and pred.gamma.min() >= 0
+              and pred.sigma.min() > 0, "missing-serve: negative variance")
+    mmu = np.concatenate([p.mu for p in mpreds])[:, 0]
+    msig = np.concatenate([p.sigma for p in mpreds])[:, 0]
+    print(f"missing-serve: {len(Xs)} rows ({n_nan} with NaNs) in {n_req} "
+          f"requests, seconds {[round(s_, 4) for s_ in msecs]}, warm rows/s "
+          f"{[round(REQUEST_ROWS / s_, 1) for s_ in msecs[1:]]} (complete "
+          f"rows, phase 5: {[round(w, 1) for w in warm]}); test RMSE "
+          f"{metrics.rmse_curve(zs, mmu, msig)[-1]:.6f}")
+    print(f"missing-serve: {want_calls} moment calls, forward launches "
+          f"{missing_launches} (expected {want_launches}); coverage of the "
+          f"top {predict_mod.MIX_TOPL} of {model32.cfg.m} components over "
+          f"{len(coverages)} guarded batches: min {min(coverages):.9f}, "
+          f"{n_esc} escalated to the exact mixture (below "
+          f"{predict_mod.MIX_COVERAGE_MIN})")
+    check(missing_launches == want_launches and missing_launches > 0,
+          "missing-serve: kernel launch count differs from what the calls "
+          "imply")
+    for dt_name, mdl in (("float32", model32), ("float64", model64)):
+        pred = gpz_tpu_torch.predict(Xs[picks], mdl, psi=psis[picks])
+        for k_ in OUTPUTS:
+            got, want = getattr(pred, k_), gm[f"{dt_name}.{k_}"]
+            rtol, atol = MISSING_TOL[dt_name][k_]
+            err = np.abs(got - want)
+            worst = float(np.max(err / (atol + rtol * np.abs(want))))
+            print(f"missing-golden {dt_name} {k_}: max_abs {err.max():.3e} "
+                  f"(err/bound {worst:.3f})")
+            check(worst <= 1.0, f"missing-golden {dt_name} {k_} beyond "
+                  f"rtol={rtol}, atol={atol}")
+
+    # the kernel at every shape that the first request launches, recorded
+    # from that request served once more: the complete rows' two sites, and
+    # the mixture sums' X_hat and Psi_hat of each pattern with a lost band
+    rq = requests[0]
+    _, mix_sites = site_calls(lambda: gpz_tpu_torch.predict(
+        Xs[rq], model32, psi=psis[rq]))
+    want_sites = expected_sites(model32.cfg, mcalls[0])
+    check(site_counts(mix_sites) == want_sites, "missing-serve: one request "
+          f"launched {site_counts(mix_sites)}, the budgets imply "
+          f"{want_sites}")
+    mix_cases = compare_sites("missing", mix_sites,
+                              f"{REQUEST_ROWS}-row request with NaNs")
+    del mix_sites
+
+    # the mixture sums in float32 against float64, at the trained point
+    mix = {}
+    for dt_name in ("float64", "float32", "float64", "float32"):
+        predict_mod.MIX_DTYPE = getattr(torch, dt_name)
+        try:
+            pred, sec = timed_predict(Xs[rq], model32, psis[rq])
+        finally:
+            predict_mod.MIX_DTYPE = f64
+        mix.setdefault(dt_name, []).append((pred, sec))
+    p64, p32 = mix["float64"][-1][0], mix["float32"][-1][0]
+    nan32 = sum(int((~np.isfinite(getattr(p32, k_))).sum())
+                for k_ in OUTPUTS + ("phi",))
+    fin = np.isfinite(p32.mu[:, 0]) & np.isfinite(p32.sigma[:, 0])
+    print(f"mix-dtype: {REQUEST_ROWS} rows at the trained point, mixture "
+          f"sums in float32 against float64: {nan32} non-finite output "
+          f"values in float32 (float64: "
+          f"{sum(int((~np.isfinite(getattr(p64, k_))).sum())
+                 for k_ in OUTPUTS + ('phi',))}"
+          f"), max |mu32 - mu64| "
+          f"{np.abs(p32.mu - p64.mu)[fin].max():.3e}, max relative "
+          f"difference of sigma "
+          f"{(np.abs(p32.sigma - p64.sigma) / p64.sigma)[fin].max():.3e}; "
+          f"seconds float64 {[round(x[1], 4) for x in mix['float64']]}, "
+          f"float32 {[round(x[1], 4) for x in mix['float32']]}")
+
+    # 10. missing-objective: the masked pass, VC m=100
+    Xm, Ym, psim, omegam, trm, vam = missing_train_problem(
+        synthetic_sdss, datautils.get_omega)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vc0 = gpz_tpu_torch.init(Xm, Ym, "VC", TRAIN_M, psi=psim, training=trm,
+                             seed=1, dtype="float64")
+    torch.cuda.synchronize()
+    vc_init_s = time.perf_counter() - t0
+    flat_m, unravel_m = vc0.last.params.flatten()
+    err0 = float(np.max(np.abs(flat_m.cpu().numpy() - gm["init.flat"])))
+    check(err0 <= MISSING_TOL["init.flat"], "missing-objective: init "
+          f"differs from the JAX package's by {err0:.3e}")
+
+    def masked_data(mdl, sel):
+        Xn = (Xm - mdl.muX[None, :]) / mdl.sdX[None, :]
+        Yc = Ym[:, None] - mdl.muY[None, :]
+        psi_c = datautils.fix_psi(psim, len(Ym), mdl.sdX, mdl.cfg.full_cov)
+        return _make_dataset(Xn, Yc, psi_c, np.ones(len(Ym)), sel, f64, dev)
+
+    data_m = masked_data(vc0, objective_rows(trm))
+    check(data_m.n == OBJECTIVE_ROWS and not bool(data_m.mask.all()),
+          "missing-objective: rows differ")
+    flat_g = torch.as_tensor(gm["init.flat"], device=dev)
+    nlml, grad = objective_at(flat_g, unravel_m, data_m, vc0.cfg,
+                              complete=False)
+    (frt, fat), (grt, gat) = MISSING_TOL["init.nlml"], MISSING_TOL[
+        "init.grad"]
+    want_f, want_g = float(gm["init.nlml"]), gm["init.grad"]
+    f_ratio = abs(nlml - want_f) / (fat + frt * abs(want_f))
+    g_err = np.abs(grad - want_g)
+    g_ratio = float(np.max(g_err / (gat + grt * np.abs(want_g))))
+    print(f"missing-objective: init on {int(trm.sum())} rows with NaNs in "
+          f"{vc_init_s:.3f} s (flat parameters vs JAX max_abs {err0:.3e}); "
+          f"{OBJECTIVE_ROWS} rows: nlml {nlml:.12f} (JAX {want_f:.12f}, "
+          f"err/bound {f_ratio:.3f}); gradient max_abs {g_err.max():.3e} of "
+          f"max {np.abs(want_g).max():.3e} (err/bound {g_ratio:.3f})")
+    check(np.isfinite(nlml) and np.isfinite(grad).all(),
+          "missing-objective: non-finite")
+    check(f_ratio <= 1.0 and g_ratio <= 1.0, "missing-objective: value or "
+          "gradient beyond MISSING_TOL of JAX's")
+    data_mt = masked_data(vc0, trm)
+
+    def masked_eval():
+        return objective_at(flat_m, unravel_m, data_mt, vc0.cfg,
+                            complete=False)
+
+    masked_eval()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    masked_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        masked_eval()
+        masked_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    masked_launches = count_launches(masked_eval)
+    print(f"missing-objective: one gradient evaluation of the masked pass at "
+          f"{data_mt.n} x {TRAIN_M}, d=5, float64, host clock with its "
+          f"result read back: {[round(t_, 1) for t_ in masked_ms]} ms, "
+          f"{masked_launches} cudaLaunchKernel calls, peak device memory "
+          f"{peak / 2**20:.0f} MiB ({(peak - base_mem) / 2**20:.0f} MiB "
+          f"above what was held before)")
+    del data_mt, data_m
+
+    # 11. diag-train: VD m=100, psi (n, d), NaNs, balanced weights
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vd0 = gpz_tpu_torch.init(Xm, Ym, "VD", TRAIN_M, psi=psim, omega=omegam,
+                             training=trm, seed=1, dtype="float64")
+    torch.cuda.synchronize()
+    vd_init_s = time.perf_counter() - t0
+    err0 = float(np.max(np.abs(vd0.last.params.flatten()[0].cpu().numpy()
+                               - gm["vd.init.flat"])))
+    check(err0 <= MISSING_TOL["vd.init.flat"], "diag-train: init differs "
+          f"from the JAX package's by {err0:.3e}")
+    t0 = time.perf_counter()
+    vd1 = gpz_tpu_torch.train(vd0, Xm, Ym, training=trm, validation=vam,
+                              psi=psim, omega=omegam, max_iter=TRAIN_ITERS,
+                              max_attempts=MAX_ATTEMPTS, verbose=False)
+    torch.cuda.synchronize()
+    vd_train_s = time.perf_counter() - t0
+    vfit = vd1.fit_info
+    vtrace = vfit["trace"]
+    check(all(np.isfinite(a).all() for a in (
+        vtrace["f"], vtrace["opt_cond"], vtrace["step"], vtrace["score"],
+        *vtrace["extras"].values())), "diag-train: non-finite trace value")
+    check(bool(np.all(np.diff(vtrace["f"]) <= 0)),
+          "diag-train: f increased over an accepted iteration")
+    check(vfit["iterations"] == TRAIN_ITERS, f"diag-train: "
+          f"{vfit['iterations']} iterations, expected {TRAIN_ITERS}")
+    rtol, atol = MISSING_TOL["vd.trace.f"]
+    t_err = np.abs(vtrace["f"][:k] - gm["vd.trace.f"])
+    t_ratio = float(np.max(t_err / (atol + rtol * np.abs(gm["vd.trace.f"]))))
+    print(f"diag-train: VD m={TRAIN_M}, init {vd_init_s:.3f} s (vs JAX "
+          f"max_abs {err0:.3e}); f at iterations 0..{TRACE_ITERS} "
+          f"{np.round(vtrace['f'][:k], 8).tolist()} vs JAX max_abs "
+          f"{t_err.max():.3e} (err/bound {t_ratio:.3f}); evaluations "
+          f"{vtrace['fevals'][:k].tolist()} (JAX "
+          f"{gm['vd.trace.fevals'].tolist()})")
+    check(t_ratio <= 1.0, f"diag-train: f trace beyond rtol={rtol}, "
+          f"atol={atol} of JAX's float64 trace")
+    check(np.array_equal(vtrace["fevals"][:k], gm["vd.trace.fevals"]),
+          "diag-train: evaluation counts differ from JAX's over iterations "
+          "0..5")
+    Xt_nan = inject_missing(mags[rows])
+    vpred, vsec = timed_predict(Xt_nan, vd1, psi_all[rows])
+    check(all(np.isfinite(getattr(vpred, k_)).all()
+              for k_ in OUTPUTS + ("phi",)) and vpred.sigma.min() > 0,
+          "diag-train: prediction is not finite with positive variance")
+    print(f"diag-train: {vfit['iterations']} iterations, "
+          f"{vfit['fun_evals']} evaluations in {vd_train_s:.3f} s "
+          f"({vd_train_s / vfit['fun_evals'] * 1e3:.3f} ms per evaluation, "
+          f"scoring and resolving included); final nlml "
+          f"{vfit['final_nlml']:.8f}, valid RMSE "
+          f"{vtrace['extras']['valid_rmse'][-1]:.6f}; predict on "
+          f"{len(rows)} test rows with NaNs in {vsec:.3f} s "
+          f"({len(rows) / vsec:.1f} rows/s, first call), test RMSE "
+          f"{metrics.rmse_curve(z[rows], vpred.mu[:, 0], vpred.sigma[:, 0])[-1]:.6f}")
+
+
     n_, m_, d_ = big[0].shape[0], big[2].shape[0], big[0].shape[1]
     source = "gpz_tpu_torch/csrc/vc_phi.cu"
     kernels = [{
         "name": "vc_lnphi_fwd", "route": "cuda", "source": source,
         "replaces": "gpz_tpu/ops/vc_phi.py:126",
-        "launches": serve_launches + path_fwd,
-        "launches_by_path": {"serve": serve_launches, "train": path_fwd},
-        "max_abs_err": max(c["max_abs_err"]
-                           for c in slice_cases + [fwd_big]),
+        "launches": serve_launches + path_fwd + missing_launches,
+        "launches_by_path": {"serve": serve_launches, "train": path_fwd,
+                             "missing_serve": missing_launches},
+        "max_abs_err": max(c["max_abs_err"] for c in (
+            fwd_big, *serve_cases.values(), *mix_cases.values())),
+        "sites": {**serve_cases, **mix_cases},
         "shape": [n_, m_, d_, "float64"],
         "ms": fwd_big["ms"], "plain_ms": fwd_big["plain_ms"],
         **{k_: v for k_, v in bound("fwd", n_, m_, d_, "float64").items()
@@ -801,7 +1193,8 @@ def main(argv) -> int:
         "name": "vc_lnphi_bwd", "route": "cuda", "source": source,
         "replaces": "gpz_tpu/ops/vc_phi.py:138",
         "launches": path_bwd,
-        "launches_by_path": {"serve": 0, "train": path_bwd},
+        "launches_by_path": {"serve": 0, "train": path_bwd,
+                             "missing_serve": 0},
         "max_abs_err": max(bwd_errs),
         "shape": [n_, m_, d_, "float64"],
         **bwd_rec["70000x100"],

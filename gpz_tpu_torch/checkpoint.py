@@ -15,7 +15,7 @@ import torch
 from gpz_tpu_torch.config import ModelConfig
 from gpz_tpu_torch.params import GPzParams
 from gpz_tpu_torch.objective import Posterior
-from gpz_tpu_torch.model import GPzModel, ParamSet
+from gpz_tpu_torch.model import GPzModel, ParamSet, train
 
 _FORMAT_VERSION = 1
 
@@ -92,3 +92,38 @@ def load_model(path: str, device=None) -> GPzModel:
             last=_load_pset("last", z, dtype, device, header["last_score"]),
             best=_load_pset("best", z, dtype, device, header["best_score"]),
         )
+
+
+def train_with_checkpoints(
+    model,
+    X,
+    Y,
+    *,
+    checkpoint_path: str,
+    segment_iters: int = 50,
+    max_iter: int = 200,
+    resume: bool = True,
+    **train_kwargs,
+):
+    """Preemption-safe training: optimize in segments, checkpointing after
+    each.
+
+    If `resume` and a checkpoint exists, continues from it, on the device
+    that holds `model`. The L-BFGS curvature history restarts at each segment
+    boundary (the carried model state is theta + best-theta, matching the
+    reference's repeated-train semantics, train.m:8-11).
+    """
+    if resume and os.path.exists(checkpoint_path):
+        model = load_model(checkpoint_path,
+                           device=model.last.params.P.device)
+
+    done = 0
+    while done < max_iter:
+        seg = min(segment_iters, max_iter - done)
+        model = train(model, X, Y, max_iter=seg, **train_kwargs)
+        done += model.fit_info["iterations"]
+        save_model(model, checkpoint_path)
+        # converged before using the segment budget -> stop
+        if model.fit_info["iterations"] < seg:
+            break
+    return model

@@ -16,12 +16,6 @@ METHODS = ("GL", "VL", "GD", "VD", "GC", "VC")
 FULL_COV_METHODS = ("GC", "VC")
 
 
-def not_ported(what: str) -> NotImplementedError:
-    """The error for a path of gpz_tpu that this package does not have yet."""
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, Queue 1)")
-
-
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Static model structure (ref GPz/init.m:16-20 `model` struct fields).
@@ -98,3 +92,11 @@ class TrainConfig:
     c2: float = 0.9
     max_ls: int = 25
     verbose: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class PredictConfig:
+    """Prediction options (ref GPz/predict.m:5-8)."""
+
+    which_set: str = "best"      # "best" | "last"
+    batch_size: int = 4096       # host-side chunking of the O(n m^2) moment pass

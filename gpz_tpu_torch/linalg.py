@@ -1,5 +1,5 @@
-"""Numerics substrate: robust PSD factorizations and solves, and batched tiny
-(d x d) solves (the parts of gpz_tpu.linalg that prediction and training use).
+"""Numerics substrate (gpz_tpu.linalg): robust PSD factorizations and solves,
+batched tiny (d x d) solves, masked moments, distances and imputation.
 
 The d-unrolled functions keep gpz_tpu's operation order term for term, so in
 float64 they agree with it to rounding. Non-PD inputs give NaN, as JAX's
@@ -76,6 +76,14 @@ def solve_w_logdet(SIGMA: torch.Tensor, rhs: torch.Tensor):
     L = safe_cholesky(SIGMA)
     w = chol_solve(L, rhs.transpose(0, 1)[..., None])[..., 0]   # (k, m)
     return w.transpose(0, 1), chol_logdet(L)
+
+
+def inv_logdet_psd(A: torch.Tensor):
+    """(A^-1, log|A|) for PSD A: the role of ref GPz/inv_logdet.m."""
+    L = safe_cholesky(A)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device).expand(
+        A.shape)
+    return chol_solve(L, eye), chol_logdet(L)
 
 
 def unrolled_cholesky(A: torch.Tensor) -> torch.Tensor:
@@ -185,3 +193,67 @@ def masked_psd(A: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     outer = m[..., :, None] * m[..., None, :]
     eye = torch.eye(d, dtype=A.dtype, device=A.device)
     return A * outer + eye * (1.0 - m)[..., :, None]
+
+
+def dxy(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """Pairwise squared Euclidean distances, (n, p). Ref GPz/Dxy.m:3-7."""
+    xx = torch.sum(X * X, dim=1)[:, None]
+    yy = torch.sum(Y * Y, dim=1)[None, :]
+    return torch.abs(xx + yy - 2.0 * (X @ Y.transpose(0, 1)))
+
+
+def nanaware_moments(X: torch.Tensor):
+    """NaN-aware mean and covariance, ref GPz/pca.m:5-17.
+
+    Returns (mu (d,), cov (d, d)) where cov uses the reference's
+    pairwise-count normalization: cov = (Xc^T Xc) / (n - Mc^T Mc) with Xc the
+    zero-filled centered data and Mc the missingness indicator.
+    """
+    n = X.shape[0]
+    missing = torch.isnan(X)
+    zero = torch.zeros((), dtype=X.dtype, device=X.device)
+    Xz = torch.where(missing, zero, X)
+    counts = torch.sum(~missing, dim=0)
+    mu = torch.sum(Xz, dim=0) / counts
+    Xc = torch.where(missing, zero, X - mu[None, :])
+    Mc = missing.to(X.dtype)
+    denom = n - Mc.transpose(0, 1) @ Mc
+    cov = (Xc.transpose(0, 1) @ Xc) / denom
+    return mu, cov
+
+
+def pca_whiten(X: torch.Tensor):
+    """Eig-based PCA whitening for center initialization, ref GPz/pca.m:19-46.
+
+    Returns (mu, cov, T, Ti) where T = U S^-1 whitens and Ti = S U^T
+    un-whitens; the reference eig-decomposes n * cov_pairwise and scales by
+    sqrt(lambda / (n - 1)). Eigenvectors are defined up to sign, so T and Ti
+    are too.
+    """
+    n = X.shape[0]
+    mu, cov = nanaware_moments(X)
+    evals, U = torch.linalg.eigh(n * cov)
+    evals = torch.abs(evals)
+    order = torch.argsort(-evals)
+    U = U[:, order]
+    evals = evals[order]
+    S = torch.sqrt(evals / (n - 1))
+    T = U / S[None, :]
+    Ti = S[:, None] * U.transpose(0, 1)
+    return mu, cov, T, Ti
+
+
+def fill_linear(X: torch.Tensor, mu: torch.Tensor,
+                cov: torch.Tensor) -> torch.Tensor:
+    """Gaussian-conditional imputation of NaNs, ref GPz/fillLinear.m:25-28.
+
+    x_hat = mu + cov @ y where (M cov M + (I-M)) y = M (x - mu). On observed
+    dims this returns x unchanged; on missing dims it returns
+    mu_u + cov_uo cov_oo^-1 (x_o - mu_o): one batched d x d solve per row.
+    """
+    mask = ~torch.isnan(X)
+    zero = torch.zeros((), dtype=X.dtype, device=X.device)
+    r = torch.where(mask, X - mu[None, :], zero)
+    A = masked_psd(cov.expand((X.shape[0],) + tuple(cov.shape)), mask)
+    y = torch.linalg.solve(A, r[..., None])[..., 0]
+    return mu[None, :] + y @ cov

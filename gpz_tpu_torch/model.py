@@ -21,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from gpz_tpu_torch.config import ModelConfig, TrainConfig, not_ported
+from gpz_tpu_torch.config import ModelConfig, TrainConfig
 from gpz_tpu_torch.dataset import Dataset
 from gpz_tpu_torch.params import GPzParams
 from gpz_tpu_torch.objective import (
@@ -152,14 +152,9 @@ def _make_dataset(Xn, Yc, psi, omega, rows, dtype, device) -> Dataset:
     )
 
 
-def _complete(data: Dataset, cfg: ModelConfig) -> bool:
-    """All rows observed? Anything else is not ported for training."""
-    complete = bool(data.mask.all())
-    if not complete:
-        raise not_ported("training on rows with missing values")
-    if not cfg.full_cov:
-        raise not_ported(f"training the diagonal family ({cfg.method})")
-    return complete
+def _complete(data: Dataset) -> bool:
+    """All rows observed? The whole-dataset hint that phi.log_phi takes."""
+    return bool(data.mask.all())
 
 
 def init(
@@ -254,7 +249,7 @@ def init(
     params = GPzParams.from_numpy(arrays, device, dt)
 
     data = _make_dataset(Xn, Yc, psi_c, omega, training, dt, device)
-    post = posterior(params, data, cfg, complete=_complete(data, cfg))
+    post = posterior(params, data, cfg, complete=_complete(data))
     priors = torch.full((m,), 1.0 / m, dtype=dt, device=device)
 
     last = ParamSet(params=params, post=post, priors=priors)
@@ -309,11 +304,11 @@ def train(
     f64 = torch.float64
     cfg64 = dataclasses.replace(cfg, dtype="float64")
     data_tr = _make_dataset(Xn, Yc, psi_c, omega, training, f64, device)
-    complete_tr = _complete(data_tr, cfg)
+    complete_tr = _complete(data_tr)
     has_valid = validation is not None and bool(np.any(validation))
     if has_valid:
         data_va = _make_dataset(Xn, Yc, psi_c, omega, validation, f64, device)
-        complete_va = _complete(data_va, cfg)
+        complete_va = _complete(data_va)
 
     flat0, unravel = model.last.params.astype(f64).flatten()
     x_best0 = model.best.params.astype(f64).flatten()[0]
@@ -391,6 +386,59 @@ def train(
     )
 
 
+def sample_weights(
+    model: GPzModel,
+    n_samples: int = 20,
+    *,
+    which_set: str = "best",
+    seed: int = 0,
+) -> np.ndarray:
+    """Draw basis-weight samples from the Gaussian posterior N(w, SIGMA^-1).
+
+    The reference's posterior-sample plot (ref demo_sinc.m:77-87) draws
+    ws = w + U sqrt(S) z with [U, S] = svd(iSigma_w), z ~ N(0, I), then
+    plots the sampled curves PHI @ ws + muY. This is that draw as an API:
+    returns (m, k, n_samples); curves for inputs X are
+    `predict(X, model).phi @ draws[:, j, :] + model.muY[j]` per output j.
+
+    Host-side NumPy: one m x m SVD per output, and gpz_tpu's draws for the
+    same seed.
+    """
+    pset = model.best if which_set == "best" else model.last
+    w = pset.post.w.detach().cpu().numpy().astype(np.float64)         # (m, k)
+    C = pset.post.iSigma_w.detach().cpu().numpy().astype(np.float64)  # (k,m,m)
+    rng = np.random.default_rng(seed)
+    m = w.shape[0]
+    draws = []
+    for kk in range(C.shape[0]):
+        # svd of the (symmetrized) posterior covariance, like the reference;
+        # eigenvalue clipping guards the f32-stored matrix's tiny negatives
+        U, S, _ = np.linalg.svd((C[kk] + C[kk].T) / 2.0)
+        R = U * np.sqrt(np.maximum(S, 0.0))[None, :]
+        draws.append(
+            w[:, kk, None] + R @ rng.standard_normal((m, n_samples))
+        )
+    return np.stack(draws, axis=1)                           # (m, k, S)
+
+
+def _moments_batch(cfg: ModelConfig, batch_size: int = 2048) -> int:
+    """Rows per batch of predict()'s moment-matching pass.
+
+    The pass tiles itself over basis-index blocks against
+    predict.PAIR_BUDGET; the row batch keeps eight (n, m, d_cost) tensors
+    within it: the diagonal family's pair block at a block size of 8, the
+    full family's mixture tensors (X_hat, Psi_hat) of the missing-data path.
+    Budgets are calibrated in f32 elements and the chain runs in
+    predict.VARIANCE_DTYPE, so the batch scales down with its width.
+    """
+    d_cost = cfg.d * cfg.d if cfg.full_cov else cfg.d
+    vbytes = torch.finfo(predict_mod.VARIANCE_DTYPE).bits // 8
+    return max(
+        16, min(batch_size,
+                predict_mod.PAIR_BUDGET * 4 // vbytes // (8 * cfg.m * d_cost))
+    )
+
+
 def predict(
     X,
     model: GPzModel,
@@ -405,9 +453,8 @@ def predict(
     sigma = nu + beta_i + gamma (predict.m:72); mu is un-centered by muY.
     Rows are grouped by missingness pattern host-side (predict.m:45-56) and
     each group runs in row batches on the device that holds the model's
-    parameters; clean rows take the O(n m) fast path. Only complete rows of
-    the full-covariance family are ported: anything else raises
-    NotImplementedError.
+    parameters; clean rows take the O(n m) fast path. NaN in X marks a
+    missing value.
     """
     cfg = model.cfg
     X = np.asarray(X, dtype=np.float64)
@@ -440,6 +487,12 @@ def predict(
         "phi": np.zeros((n, cfg.m)),
     }
 
+    # the full-covariance missing path truncates its conditioning mixture to
+    # the top MIX_TOPL responsibilities per row; a batch whose dropped mass
+    # is not negligible (flat responsibilities) is run again with the exact
+    # sum, at the price of one host read of `coverage` per guarded batch
+    guard_mix = cfg.full_cov and cfg.m > predict_mod.MIX_TOPL
+
     def run_batch(idx, pat, complete):
         Xg = dev(Xz[idx])
         if complete and psi_c is None:
@@ -447,28 +500,25 @@ def predict(
             return predict_mod.predict_clean(
                 pset.params, pset.post, cfg, Xg, mask_g, None, complete=True,
             )
-        if not cfg.full_cov:
-            raise not_ported(
-                f"prediction for the diagonal family ({cfg.method})")
         if psi_c is None:
-            psig = torch.zeros((len(idx), d, d), dtype=dt, device=device)
+            shape = (len(idx), d, d) if cfg.full_cov else (len(idx), d)
+            psig = torch.zeros(shape, dtype=dt, device=device)
         else:
             psig = dev(psi_c[idx])
-        return predict_mod.predict_moments_full(
-            pset.params, pset.post, pset.priors, cfg, Xg, dev(pat), psig,
-            complete,
-        )
+        margs = (pset.params, pset.post, pset.priors, cfg, Xg, dev(pat),
+                 psig, complete)
+        if not cfg.full_cov:
+            # the diagonal family computes its mixture exactly
+            return predict_mod.predict_moments_diag(*margs)
+        if guard_mix and not complete:
+            *res, coverage = predict_mod.predict_moments_full(
+                *margs, mix_topl=None, return_coverage=True)
+            if float(coverage) >= predict_mod.MIX_COVERAGE_MIN:
+                return res
+            return predict_mod.predict_moments_full(*margs, mix_topl=cfg.m)
+        return predict_mod.predict_moments_full(*margs)
 
-    # the moment-matching pass tiles itself over basis-index blocks against
-    # predict.PAIR_BUDGET; the row batch leaves room for a block size of ~8.
-    # Budgets are calibrated in f32 elements and the chain runs in
-    # predict.VARIANCE_DTYPE, so the batch scales down with its width
-    d_cost = d * d if cfg.full_cov else d
-    vbytes = torch.finfo(predict_mod.VARIANCE_DTYPE).bits // 8
-    moments_batch = max(
-        16, min(batch_size,
-                predict_mod.PAIR_BUDGET * 4 // vbytes // (8 * cfg.m * d_cost))
-    )
+    moments_batch = _moments_batch(cfg, batch_size)
 
     # group rows by missingness pattern (ref predict.m:45-56)
     patterns, inverse = np.unique(mask, axis=0, return_inverse=True)

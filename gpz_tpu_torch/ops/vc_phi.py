@@ -44,8 +44,11 @@ from gpz_tpu_torch.linalg import quad_logdet_psd, unrolled_inv_psd
 LAUNCHES_FWD = 0
 LAUNCHES_BWD = 0
 
-#: row block of the plain path: bounds its (rows, m, d, d) working set
+#: row block of the plain path, and the size of its (rows, m, d, d) working
+#: set at m=100, d=5, which bounds the block for wider calls (the pair pass
+#: of prediction passes thousands of pairs as bases)
 PHI_BLOCK_ROWS = 4096
+PLAIN_BLOCK_ELEMS = 4096 * 100 * 25
 
 #: largest d the kernel is compiled for (linalg's unroll_max)
 D_MAX = 8
@@ -59,6 +62,12 @@ NVCC_FLAGS = (
 )
 
 _LIB = None
+
+
+def _plain_rows(m: int, d: int) -> int:
+    """Rows per block of the plain path: PHI_BLOCK_ROWS, fewer where that
+    many (rows, m, d, d) systems would exceed PLAIN_BLOCK_ELEMS."""
+    return max(1, min(PHI_BLOCK_ROWS, PLAIN_BLOCK_ELEMS // max(1, m * d * d)))
 
 
 def build() -> str:
@@ -244,11 +253,12 @@ def vc_lnphi_complete(X, psi, P, Sigma, logdet_Sigma):
 
 def vc_lnphi_plain(X, psi, P, Sigma, logdet_Sigma):
     """The same function in plain PyTorch: linalg.quad_logdet_psd on the
-    (rows, m, d, d) systems, PHI_BLOCK_ROWS rows at a time."""
+    (rows, m, d, d) systems, a block of rows at a time (`_plain_rows`)."""
     outs = [X.new_empty((0, P.shape[0]))]
-    for r0 in range(0, X.shape[0], PHI_BLOCK_ROWS):
-        Xb = X[r0:r0 + PHI_BLOCK_ROWS]
-        A = psi[r0:r0 + PHI_BLOCK_ROWS, None] + Sigma[None]
+    rows = _plain_rows(P.shape[0], X.shape[1])
+    for r0 in range(0, X.shape[0], rows):
+        Xb = X[r0:r0 + rows]
+        A = psi[r0:r0 + rows, None] + Sigma[None]
         quad, logdet_A = quad_logdet_psd(A, Xb[:, None, :] - P[None])
         outs.append(-0.5 * quad + 0.5 * logdet_Sigma[None] - 0.5 * logdet_A)
     return torch.cat(outs)
@@ -257,13 +267,14 @@ def vc_lnphi_plain(X, psi, P, Sigma, logdet_Sigma):
 def vc_lnphi_bwd_plain(X, psi, P, Sigma, g):
     """(dP, dSigma) in plain PyTorch, by the kernel's analytic formulas:
     linalg.unrolled_inv_psd gives A^-1 on the (rows, m, d, d) systems, then
-    h = A^-1 Delta; PHI_BLOCK_ROWS rows at a time, blocks summed in order.
+    h = A^-1 Delta; a block of rows at a time, blocks summed in order.
     The upper triangle of dSigma is mirrored into the lower, as the kernel
     writes it."""
     dP = torch.zeros_like(P)
     dSigma = torch.zeros_like(Sigma)
-    for r0 in range(0, X.shape[0], PHI_BLOCK_ROWS):
-        rows = slice(r0, r0 + PHI_BLOCK_ROWS)
+    step = _plain_rows(P.shape[0], X.shape[1])
+    for r0 in range(0, X.shape[0], step):
+        rows = slice(r0, r0 + step)
         gb = g[rows]
         Ainv, _ = unrolled_inv_psd(psi[rows, None] + Sigma[None])
         h = torch.einsum("nmab,nmb->nma", Ainv, X[rows, None, :] - P[None])

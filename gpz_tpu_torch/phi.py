@@ -1,13 +1,25 @@
-"""Design-matrix construction (gpz_tpu.phi), full-covariance family on
-complete rows.
+"""Design-matrix construction (gpz_tpu.phi): the getPHI equivalent as batched
+masked math, for all six methods, with or without input noise and missing
+values.
 
+  * GL/VL/GD/VD: diagonal covariance, Sigma_jd = gamma_jd^-2 (ref getPHI.m:93)
   * GC/VC: full covariance, iSigma_j = Gamma_j^T Gamma_j (ref getPHI.m:73)
   * input noise Psi enters as Psi + Sigma in the quadratic form plus a log-det
-    correction (Gaussian convolution, getPHI.m:84-87); with psi the pass runs
-    through ops.vc_phi.vc_lnphi_complete, the CUDA kernel on the card
+    correction (Gaussian convolution, getPHI.m:84-87,102-105)
+  * missing dims are handled by masked dense algebra: X is zero-filled, the
+    pattern lives in a boolean mask, and each unobserved dim contributes
+    -0.5*log(2) to lnPHI (marginalization constant, getPHI.m:76)
 
-Differentiable in P and gamma (the kernel pair carries the gradient through
-lnPHI; GC's broadcast gamma sums its gradient over the bases).
+`complete` is a hint about the whole dataset, decided on the host: for the
+full-covariance family complete rows with psi run through
+ops.vc_phi.vc_lnphi_complete (the CUDA kernel pair on the card), complete rows
+without psi need no inverse at all, and anything else takes the masked pass
+over (rows, m, d, d) systems, PHI_BLOCK_ROWS rows at a time, each block
+recomputed in the backward so that only (rows, m) results persist. The
+diagonal family is mask-native.
+
+Differentiable in P and gamma (GL/GD/GC's broadcast gamma sums its gradient
+over the broadcast axes).
 
 Returns log-space quantities; exp happens at the caller:
   lnPHI (n, m)  log basis activations
@@ -20,12 +32,21 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from gpz_tpu_torch.config import ModelConfig, not_ported
+from gpz_tpu_torch.config import ModelConfig
 from gpz_tpu_torch.params import GPzParams
-from gpz_tpu_torch.linalg import safe_cholesky, chol_logdet
-from gpz_tpu_torch.ops.vc_phi import vc_lnphi_complete
+from gpz_tpu_torch.linalg import (
+    safe_cholesky,
+    chol_logdet,
+    masked_psd,
+    quad_logdet_psd,
+)
+# PHI_BLOCK_ROWS: the row block of the masked full-covariance pass too; it
+# bounds the working set (rows * m * d^2 elements per temporary) whatever n is
+from gpz_tpu_torch.ops.vc_phi import PHI_BLOCK_ROWS, vc_lnphi_complete
 
+_LN2 = math.log(2.0)
 _LN2PI = math.log(2.0 * math.pi)
 
 
@@ -39,28 +60,92 @@ def log_phi(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Compute (lnPHI, lnN), each (n, m).
 
-    X:        (n, d) inputs
+    X:        (n, d) zero-filled inputs
     mask:     (n, d) True where observed
-    psi:      None | (n, d, d) input-noise covariances
-    complete: hint that mask is all-True; only complete rows are ported
+    psi:      None | (n, d) | (n, d, d) input-noise variances
+    complete: hint that mask is all-True (the full-covariance family then
+              skips the masked restrictions; the diagonal family is
+              mask-native)
     """
-    if not cfg.full_cov:
-        raise not_ported(f"the diagonal family ({cfg.method})")
-    if not complete:
-        raise not_ported("the design matrix with missing data")
-    return _log_phi_full(params, cfg, X, psi)
+    if cfg.full_cov:
+        return _log_phi_full(params, cfg, X, mask, psi, complete)
+    return _log_phi_diag(params, cfg, X, mask, psi)
 
 
-def _log_phi_full(params, cfg, X, psi):
+def _log_phi_diag(params, cfg, X, mask, psi):
+    G = params.expand_gamma(cfg)             # (m, d)
+    Sigma = G**-2                            # per-dim variances (getPHI.m:93)
+    P = params.P
+    fmask = mask.to(X.dtype)
+    n_obs = torch.sum(fmask, dim=1)          # (n,)
+    n_mis = X.shape[1] - n_obs
+
+    Delta = X[:, None, :] - P[None, :, :]    # (n, m, d)
+    log_sigma_obs = fmask @ torch.log(Sigma).transpose(0, 1)   # (n, m)
+
+    if psi is None:
+        quad = torch.einsum("nmd,md,nd->nm", Delta**2, 1.0 / Sigma, fmask)
+        ln_phi = -0.5 * quad - 0.5 * n_mis[:, None] * _LN2
+    else:
+        ps = psi[:, None, :] + Sigma[None, :, :]               # (n, m, d)
+        quad = torch.einsum("nmd,nd->nm", Delta**2 / ps, fmask)
+        # log(1 + psi/Sigma) correction (getPHI.m:104)
+        logr = torch.einsum(
+            "nmd,nd->nm", torch.log1p(psi[:, None, :] / Sigma[None, :, :]),
+            fmask)
+        ln_phi = -0.5 * quad - 0.5 * logr - 0.5 * n_mis[:, None] * _LN2
+
+    ln_n = (
+        ln_phi
+        - 0.5 * log_sigma_obs
+        - 0.5 * n_obs[:, None] * _LN2PI
+        + 0.5 * n_mis[:, None] * _LN2
+    )
+    return ln_phi, ln_n
+
+
+def _masked_block(Xb, maskb, psib, P, Sigma):
+    """The masked pass on one block of rows: (rows, m, d, d) work through
+    Sigma_oo and (Psi + Sigma)_oo (ref getPHI.m:76-87)."""
+    d = Xb.shape[1]
+    fm = maskb.to(Xb.dtype)
+    n_obs = torch.sum(fm, dim=1)
+    n_mis = d - n_obs
+    Delta = (Xb[:, None, :] - P[None, :, :]) * fm[:, None, :]
+    Soo = masked_psd(Sigma[None, :, :, :], maskb[:, None, :])
+    quad, logdet_Soo = quad_logdet_psd(Soo, Delta)
+    if psib is None:
+        ln_phi = -0.5 * quad - 0.5 * n_mis[:, None] * _LN2
+    else:
+        ps = masked_psd(psib[:, None, :, :] + Sigma[None, :, :, :],
+                        maskb[:, None, :])
+        quad, logdet_ps = quad_logdet_psd(ps, Delta)
+        # +0.5 logdet(Sigma_oo) - 0.5 logdet(Psi_oo+Sigma_oo) (getPHI.m:86)
+        ln_phi = (
+            -0.5 * quad
+            + 0.5 * logdet_Soo
+            - 0.5 * logdet_ps
+            - 0.5 * n_mis[:, None] * _LN2
+        )
+    ln_n = (
+        ln_phi
+        - 0.5 * logdet_Soo
+        - 0.5 * n_obs[:, None] * _LN2PI
+        + 0.5 * n_mis[:, None] * _LN2
+    )
+    return ln_phi, ln_n
+
+
+def _log_phi_full(params, cfg, X, mask, psi, complete):
     G = params.expand_gamma(cfg)             # (m, d, d)
     P = params.P
-    d = X.shape[1]
+    n, d = X.shape
     m = cfg.m
     iSig = G.transpose(-1, -2) @ G           # Gamma^T Gamma (getPHI.m:73)
     L_iSig = safe_cholesky(iSig)
     logdet_Sigma = -chol_logdet(L_iSig)      # (m,)
 
-    if psi is None:
+    if complete and psi is None:
         # quad = |Gamma Delta|^2: no inverse needed
         Delta = X[:, None, :] - P[None, :, :]
         V = torch.einsum("mab,nmb->nma", G, Delta)
@@ -73,9 +158,25 @@ def _log_phi_full(params, cfg, X, psi):
     eye = torch.eye(d, dtype=X.dtype, device=X.device).expand(m, d, d)
     Linv = torch.linalg.solve_triangular(L_iSig, eye, upper=False)
     Sigma = (Linv.transpose(-1, -2) @ Linv).contiguous()
-    ln_phi = vc_lnphi_complete(X, psi, P.contiguous(), Sigma, logdet_Sigma)
-    ln_n = ln_phi - 0.5 * logdet_Sigma[None, :] - 0.5 * d * _LN2PI
-    return ln_phi, ln_n
+
+    if complete:
+        ln_phi = vc_lnphi_complete(X, psi, P.contiguous(), Sigma,
+                                   logdet_Sigma)
+        ln_n = ln_phi - 0.5 * logdet_Sigma[None, :] - 0.5 * d * _LN2PI
+        return ln_phi, ln_n
+
+    B = PHI_BLOCK_ROWS
+    if n <= B:
+        return _masked_block(X, mask, psi, P, Sigma)
+    # each block is recomputed in the backward: autograd keeps a block's
+    # inputs and its two (rows, m) results, not its (rows, m, d, d) chain
+    outs = [
+        checkpoint(_masked_block, X[r0:r0 + B], mask[r0:r0 + B],
+                   None if psi is None else psi[r0:r0 + B], P, Sigma,
+                   use_reentrant=False)
+        for r0 in range(0, n, B)
+    ]
+    return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
 
 
 def design_matrix(

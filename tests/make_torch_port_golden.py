@@ -1,9 +1,9 @@
 """Regenerate the golden files that hold gpz_tpu_torch against gpz_tpu where
 JAX is absent (chip_smoke.py on the GPU).
 
-    JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py [photoz] [train]
+    JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py [photoz] [train] [missing]
 
-With no argument both files are written.
+With no argument all three files are written.
 
 tests/data/torch_port_golden_photoz.npz holds gpz_tpu.predict's outputs (mu, sigma, nu, beta_i, gamma) for
 the first 256 test rows of the photo-z parity data
@@ -27,6 +27,26 @@ seed 1), computed by gpz_tpu on the CPU:
   trace.f, trace.fevals, trace.valid_ll   gpz_tpu.train(max_iter=TRACE_ITERS,
                             max_attempts=50) on all 70,000 rows, iterations
                             0..TRACE_ITERS (a few minutes of CPU time)
+
+tests/data/torch_port_golden_missing.npz holds the paths with missing values.
+NaNs are injected by `inject_missing` (seed MISSING_SEED = 4: one permutation
+of the rows; the first 25% lose band 0 (u), the next 10% band 4 (z), the next
+5% both), regenerated by
+
+    JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py missing
+
+  rows, {float32,float64}.{mu,...}   gpz_tpu.predict's outputs, with its
+                            mixture scans in float64 (GPZ_MIX_DTYPE), for
+                            MISSING_ROWS of the first MISSING_SERVE_ROWS test
+                            rows of the photo-z parity data after injection:
+                            the first 16 rows of each of the four patterns
+  init.flat, init.nlml, init.grad   gpz_tpu.init (VC m=100, float64, seed 1)
+                            on the training problem after injection, and
+                            nlog_ml with its gradient at that point on the
+                            first OBJECTIVE_ROWS training rows
+  vd.init.flat, vd.trace.f, vd.trace.fevals   VD m=100 with psi (n, d) and
+                            get_omega(z, "balanced") weights on the same
+                            rows: init, then gpz_tpu.train(max_iter=TRACE_ITERS)
 """
 
 from __future__ import annotations
@@ -220,6 +240,151 @@ def load_golden_train() -> dict:
         return {k: z[k] for k in z.files}
 
 
+# --- missing values: serving, the masked objective, a diagonal-family run ---
+
+GOLDEN_MISSING = os.path.join(HERE, "data", "torch_port_golden_missing.npz")
+MISSING_SEED = 4
+MISSING_SERVE_ROWS = 6000
+MISSING_ROWS = 64
+#: bands lost by each of the four patterns, in the order of the golden rows
+MISSING_PATTERNS = ((), (0,), (4,), (0, 4))
+
+#: how far gpz_tpu_torch may be from the golden values of the paths with
+#: missing values, on the CPU and on the GPU alike. Serving, (rtol, atol) per
+#: output as in GOLDEN_TOL and for its reasons, three times as wide in
+#: float64: the imputed rows X_hat, Psi_hat go through inv(iSigma_uu) at
+#: cond(Sigma) ~ 5e7 before they reach the densities, and every output sums
+#: 64 such densities. Measured on the CPU against these values: mu 5.7e-10
+#: relative, sigma 4.4e-11, nu 1.8e-12 and gamma 4.1e-11 absolute in float64;
+#: 2.3e-7 absolute at most in float32. The objective at the init point and
+#: the first iterations of the VD run are well conditioned, as in TRAIN_TOL
+#: (measured on the CPU: nlml 1.5e-14, gradient 1.2e-13).
+MISSING_TOL = {
+    "float64": {"mu": (3e-8, 0.0), "beta_i": (3e-8, 0.0),
+                "sigma": (3e-8, 3e-10), "nu": (0.0, 3e-10),
+                "gamma": (0.0, 3e-10)},
+    "float32": GOLDEN_TOL["float32"],
+    "init.flat": 1e-9,
+    "init.nlml": (1e-10, 0.0), "init.grad": (1e-8, 1e-11),
+    "vd.init.flat": 1e-9,
+    "vd.trace.f": (1e-7, 0.0),
+}
+
+
+def inject_missing(X, seed=MISSING_SEED):
+    """A copy of X (n, 5) with NaNs: of its rows, drawn by one permutation,
+    25% lose band 0 (u), 10% lose band 4 (z) and 5% lose both."""
+    n = len(X)
+    order = np.random.default_rng(seed).permutation(n)
+    a, b, c = int(round(0.25 * n)), int(round(0.10 * n)), int(round(0.05 * n))
+    X = np.array(X, dtype=np.float64)
+    X[order[:a], 0] = np.nan
+    X[order[a:a + b], 4] = np.nan
+    both = order[a + b:a + b + c]
+    X[both, 0] = np.nan
+    X[both, 4] = np.nan
+    return X
+
+
+def missing_serve_rows(synthetic_sdss, split):
+    """(test-row indices, X with NaNs, psi, z) of the first
+    MISSING_SERVE_ROWS test rows of the photo-z parity data, and the
+    positions among them of the MISSING_ROWS golden rows: the first 16 of
+    each pattern of MISSING_PATTERNS."""
+    mags, errs, z = synthetic_sdss(n=N, seed=SEED)
+    _, _, test = split(len(z), 0.2, 0.2, 0.6, np.random.default_rng(SEED))
+    idx = np.where(test)[0][:MISSING_SERVE_ROWS]
+    X = inject_missing(mags[idx])
+    nan = np.isnan(X)
+    per = MISSING_ROWS // len(MISSING_PATTERNS)
+    picks = []
+    for bands in MISSING_PATTERNS:
+        want = np.zeros(X.shape[1], bool)
+        want[list(bands)] = True
+        picks.append(np.where((nan == want[None, :]).all(axis=1))[0][:per])
+    return idx, X, errs[idx] ** 2, z[idx], np.concatenate(picks)
+
+
+def missing_train_problem(synthetic_sdss, get_omega):
+    """(X with NaNs, Y, psi, omega, training, validation): train_problem's
+    rows after injection, with balanced cost weights."""
+    X, Y, psi, tr, va = train_problem(synthetic_sdss)
+    return inject_missing(X), Y, psi, get_omega(Y, "balanced"), tr, va
+
+
+def jax_missing():
+    """{name: array} of the missing-values golden file, from gpz_tpu on the
+    CPU with its mixture scans in float64."""
+    os.environ["GPZ_MIX_DTYPE"] = "float64"
+    sys.path.insert(0, ROOT)
+    import jax
+    from jax.flatten_util import ravel_pytree
+    import gpz_tpu
+    from gpz_tpu import datautils
+    from gpz_tpu.checkpoint import load_model
+    from gpz_tpu.data import synthetic_sdss
+    from gpz_tpu.model import ParamSet, _make_dataset
+    from gpz_tpu.objective import Posterior, nlog_ml
+
+    def cast(pset):
+        f64 = lambda a: a.astype(np.float64)  # noqa: E731
+        post = Posterior(w=f64(pset.post.w), iSigma_w=f64(pset.post.iSigma_w),
+                         logdet=f64(pset.post.logdet))
+        return ParamSet(params=pset.params.astype(np.float64), post=post,
+                        priors=f64(pset.priors), score=pset.score)
+
+    # serving
+    idx, Xs, psis, _, picks = missing_serve_rows(synthetic_sdss,
+                                                 datautils.split)
+    assert len(picks) == MISSING_ROWS
+    model = load_model(CHECKPOINT)
+    models = {
+        "float32": model,
+        "float64": dataclasses.replace(
+            model, cfg=dataclasses.replace(model.cfg, dtype="float64"),
+            last=cast(model.last), best=cast(model.best)),
+    }
+    out = {"rows": idx[picks], "picks": picks}
+    for dt, mdl in models.items():
+        pred = gpz_tpu.predict(Xs[picks], mdl, psi=psis[picks])
+        for k in OUTPUTS:
+            out[f"{dt}.{k}"] = np.asarray(getattr(pred, k))
+
+    # the masked objective at the init point, VC
+    X, Y, psi, omega, tr, va = missing_train_problem(synthetic_sdss,
+                                                     datautils.get_omega)
+    rows = objective_rows(tr)
+    vc = gpz_tpu.init(X, Y, "VC", M, heteroscedastic=True, training=tr,
+                      psi=psi, seed=SEED, dtype="float64")
+    out["init.flat"] = np.asarray(ravel_pytree(vc.last.params)[0])
+    Xn = (X - vc.muX[None, :]) / vc.sdX[None, :]
+    Yc = Y[:, None] - vc.muY[None, :]
+    psi_c = datautils.fix_psi(psi, len(Y), vc.sdX, True)
+    data = _make_dataset(Xn, Yc, psi_c, np.ones(len(Y)), rows, np.float64)
+    (f, _), g = jax.value_and_grad(
+        lambda p: nlog_ml(p, data, vc.cfg, complete=False),
+        has_aux=True)(vc.last.params)
+    out["init.nlml"] = np.asarray(f)
+    out["init.grad"] = np.asarray(ravel_pytree(g)[0])
+
+    # the diagonal family: VD with diagonal psi and balanced weights
+    vd = gpz_tpu.init(X, Y, "VD", M, heteroscedastic=True, training=tr,
+                      psi=psi, omega=omega, seed=SEED, dtype="float64")
+    out["vd.init.flat"] = np.asarray(ravel_pytree(vd.last.params)[0])
+    fit = gpz_tpu.train(vd, X, Y, training=tr, validation=va, psi=psi,
+                        omega=omega, max_iter=TRACE_ITERS,
+                        max_attempts=MAX_ATTEMPTS, verbose=False).fit_info
+    keep = slice(0, fit["iterations"] + 1)
+    out["vd.trace.f"] = np.asarray(fit["trace"]["f"])[keep]
+    out["vd.trace.fevals"] = np.asarray(fit["trace"]["fevals"])[keep]
+    return out
+
+
+def load_golden_missing() -> dict:
+    with np.load(GOLDEN_MISSING) as z:
+        return {k: z[k] for k in z.files}
+
+
 def main(which):
     os.makedirs(os.path.dirname(GOLDEN), exist_ok=True)
     if "photoz" in which:
@@ -232,7 +397,12 @@ def main(which):
         np.savez_compressed(GOLDEN_TRAIN, seed=SEED, **jax_training())
         print(f"wrote {GOLDEN_TRAIN} ({os.path.getsize(GOLDEN_TRAIN)} "
               "bytes)")
+    if "missing" in which:
+        np.savez_compressed(GOLDEN_MISSING, seed=MISSING_SEED,
+                            **jax_missing())
+        print(f"wrote {GOLDEN_MISSING} ({os.path.getsize(GOLDEN_MISSING)} "
+              "bytes)")
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ["photoz", "train"])
+    main(sys.argv[1:] or ["photoz", "train", "missing"])

@@ -73,6 +73,97 @@ def test_save_model_round_trips_through_jax(tmp_path):
     assert_same_model(gpz_tpu_torch.load_model(path, device="cpu"), jckpt.load_model(path))
 
 
+@pytest.mark.parametrize("method", ["GL", "VL", "GD", "VD", "GC", "VC"])
+def test_six_gamma_shapes_cross_both_ways(method, tmp_path, monkeypatch):
+    """A model of each method, initialized on rows with NaNs by gpz_tpu, is
+    saved by gpz_tpu and loaded here with equal arrays (gamma in its
+    canonical shape, priors included), saved here and loaded by gpz_tpu, and
+    from_numpy / to_numpy carry its parameters unchanged."""
+    rng = np.random.default_rng(11)
+    X = rng.standard_normal((30, 3))
+    X[::5, 1] = np.nan
+    Y = np.sin(X[:, 0]) + 0.1 * rng.standard_normal(30)
+    jmodel = gpz_tpu.init(X, Y, method, 4, seed=2, dtype="float64")
+    jpath, tpath = str(tmp_path / "jax.npz"), str(tmp_path / "port.npz")
+    jckpt.save_model(jmodel, jpath)
+    model = gpz_tpu_torch.load_model(jpath, device="cpu")
+    assert_same_model(model, jmodel)
+    assert tuple(model.last.params.gamma.shape) == jmodel.cfg.gamma_shape
+    gpz_tpu_torch.save_model(model, tpath)
+    assert_same_model(model, jckpt.load_model(tpath))
+    arrays = {k: np.asarray(v) for k, v in dataclasses.asdict(
+        jmodel.last.params).items()}
+    params = GPzParams.from_numpy(arrays, "cpu", torch.float64)
+    for k, v in params.to_numpy().items():
+        np.testing.assert_array_equal(v, arrays[k])
+    # both packages compute the same prediction from the same arrays (with
+    # gpz_tpu's mixture scans in float64, as the port's are)
+    monkeypatch.setenv("GPZ_MIX_DTYPE", "float64")
+    want = gpz_tpu.predict(X, jmodel)
+    got = gpz_tpu_torch.predict(X, model)
+    np.testing.assert_allclose(got.mu, np.asarray(want.mu), rtol=1e-9,
+                               atol=1e-12)
+    np.testing.assert_allclose(got.sigma, np.asarray(want.sigma), rtol=1e-9,
+                               atol=1e-12)
+
+
+def test_train_with_checkpoints_segments_saves_and_resumes(tmp_path):
+    """6 iterations in segments of 2: a checkpoint after every segment, the
+    same number of iterations in all, and a second call resumes from the
+    file instead of the model it is handed (gpz_tpu.checkpoint's
+    semantics)."""
+    rng = np.random.default_rng(12)
+    X = rng.standard_normal((50, 2))
+    X[::6, 0] = np.nan
+    Y = np.sin(2 * X[:, 1]) + 0.1 * rng.standard_normal(50)
+    path = str(tmp_path / "run.npz")
+    model0 = gpz_tpu_torch.init(X, Y, "VD", 4, seed=1, dtype="float64",
+                                device="cpu")
+    seen = []
+    real = gpz_tpu_torch.checkpoint.save_model
+
+    def spy(model, p):
+        seen.append(model.fit_info["iterations"])
+        real(model, p)
+
+    gpz_tpu_torch.checkpoint.save_model = spy
+    try:
+        out = gpz_tpu_torch.train_with_checkpoints(
+            model0, X, Y, checkpoint_path=path, segment_iters=2, max_iter=6,
+            verbose=False)
+    finally:
+        gpz_tpu_torch.checkpoint.save_model = real
+    assert seen == [2, 2, 2] and os.path.exists(path)
+    saved = gpz_tpu_torch.load_model(path, device="cpu")
+    torch.testing.assert_close(saved.last.params.P, out.last.params.P,
+                               rtol=0, atol=0)
+    # the same segments by hand
+    by_hand = model0
+    for _ in range(3):
+        by_hand = gpz_tpu_torch.train(by_hand, X, Y, max_iter=2,
+                                      verbose=False)
+    torch.testing.assert_close(by_hand.last.params.P, out.last.params.P,
+                               rtol=0, atol=0)
+    # resume: starts from the file, not from model0
+    more = gpz_tpu_torch.train_with_checkpoints(
+        model0, X, Y, checkpoint_path=path, segment_iters=5, max_iter=1,
+        verbose=False)
+    again = gpz_tpu_torch.train(saved, X, Y, max_iter=1, verbose=False)
+    torch.testing.assert_close(more.last.params.P, again.last.params.P,
+                               rtol=0, atol=0)
+    fresh = gpz_tpu_torch.train_with_checkpoints(
+        model0, X, Y, checkpoint_path=path, segment_iters=5, max_iter=1,
+        resume=False, verbose=False)
+    one = gpz_tpu_torch.train(model0, X, Y, max_iter=1, verbose=False)
+    torch.testing.assert_close(fresh.last.params.P, one.last.params.P,
+                               rtol=0, atol=0)
+
+
+def test_predict_config_is_gpz_tpus():
+    assert dataclasses.asdict(gpz_tpu_torch.PredictConfig()) == \
+        dataclasses.asdict(gpz_tpu.config.PredictConfig())
+
+
 def test_from_numpy_carries_jax_weights():
     """Parameters carried across with from_numpy serve exactly what the
     loaded checkpoint serves, and to_numpy gives them back."""

@@ -150,3 +150,64 @@ def test_safe_cholesky_is_differentiable_at_its_jitter():
     assert torch.isfinite(L).all()
     g, = torch.autograd.grad(tl.chol_logdet(L), R)
     assert torch.isfinite(g).all() and g.abs().max() > 0
+
+
+# --- inverse, distances, NaN-aware moments, whitening, imputation ---
+
+@pytest.mark.parametrize("d", DIMS)
+def test_inv_logdet_psd_and_dxy(d):
+    rng = np.random.default_rng(70 + d)
+    A = spd(rng, (3,), d)
+    assert_same(*both("inv_logdet_psd", A), **SOLVE)
+    X, Y = rng.standard_normal((9, d)), rng.standard_normal((4, d))
+    got, want = both("dxy", X, Y)
+    assert_same(got, want)
+    brute = ((X[:, None, :] - Y[None, :, :]) ** 2).sum(-1)
+    np.testing.assert_allclose(got[0], brute, rtol=1e-11, atol=1e-12)
+
+
+def nan_data(seed, n=40, d=4):
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, d)) @ rng.standard_normal((d, d))
+    X[::7, 1] = np.nan
+    X[3::9, 3] = np.nan
+    X[5, [0, 2]] = np.nan
+    return X
+
+
+def test_nanaware_moments_and_fill_linear():
+    """Against gpz_tpu's, and fill_linear against the NumPy copy init uses:
+    observed entries come back unchanged, missing ones finite."""
+    from gpz_tpu_torch import datautils
+
+    X = nan_data(80)
+    got, want = both("nanaware_moments", X)
+    assert_same(got, want)
+    mu, cov = got
+    filled, jfilled = both("fill_linear", X, mu, cov)
+    assert_same(filled, jfilled, rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(filled[0],
+                               datautils.fill_linear_np(X, mu, cov),
+                               rtol=1e-10, atol=1e-12)
+    obs = ~np.isnan(X)
+    np.testing.assert_allclose(filled[0][obs], X[obs], rtol=1e-12)
+    assert np.isfinite(filled[0]).all()
+
+
+def test_pca_whiten():
+    """mu and cov agree with gpz_tpu's; T and Ti hold eigenvectors, which two
+    LAPACK builds may hand back with opposite signs, so they are compared
+    through what does not depend on it: Ti^T Ti = n/(n-1) cov, T = pinv(Ti)^T
+    columnwise, and |T|, |Ti| entry by entry."""
+    X = nan_data(81)
+    n = X.shape[0]
+    got, want = both("pca_whiten", X)
+    assert_same(got[:2], want[:2])
+    mu, cov, T, Ti = got
+    np.testing.assert_allclose(np.abs(T), np.abs(want[2]), rtol=1e-8,
+                               atol=1e-10)
+    np.testing.assert_allclose(np.abs(Ti), np.abs(want[3]), rtol=1e-8,
+                               atol=1e-10)
+    np.testing.assert_allclose(Ti.T @ Ti, cov * n / (n - 1), rtol=1e-10,
+                               atol=1e-12)
+    np.testing.assert_allclose(Ti @ T, np.eye(X.shape[1]), atol=1e-10)

@@ -1,6 +1,8 @@
 """gpz_tpu_torch.objective, prior and params.flatten against gpz_tpu in
-float64 on the CPU: small seeded problems of the full-covariance family on
-complete rows, with non-uniform omega.
+float64 on the CPU: small seeded problems with non-uniform omega, of the
+full-covariance family on complete rows and, over the matrix of
+tests/test_objective.py (six methods, with and without psi and missing
+values), of every path of the design matrix.
 
 Tolerances: both packages compute the same float64 formulas with different
 summation orders (XLA's reductions against PyTorch's), so values agree to
@@ -30,6 +32,8 @@ from gpz_tpu_torch.config import ModelConfig
 from gpz_tpu_torch.dataset import Dataset
 from gpz_tpu_torch.params import FIELDS, GPzParams
 from gpz_tpu_torch.prior import get_prior
+
+from test_torch_phi import make_case as make_phi_case
 
 VALUE = dict(rtol=1e-10, atol=1e-12)
 GRAD = dict(rtol=1e-8, atol=1e-10)
@@ -228,3 +232,113 @@ def test_zero_weight_rows_contribute_nothing():
     _, tdw, _ = torch_side(params, wide, cfg)
     nlml, _ = tobj.nlog_ml(tp, tdw, tcfg, n_eff=float(N), complete=True)
     np.testing.assert_allclose(nlml.numpy(), f, rtol=1e-12)
+
+
+# --- tests/test_objective.py's matrix: six methods, psi, missing values ---
+
+MATRIX = [
+    ("GL", False, False, True),
+    ("VL", True, False, True),
+    ("GD", False, True, True),
+    ("VD", True, True, True),
+    ("VD", True, False, False),
+    ("GC", True, False, True),
+    ("GC", False, True, True),
+    ("VC", False, True, True),
+    ("VC", True, True, True),
+]
+MATRIX_IDS = [f"{m}-{'psi' if p else 'nopsi'}-{'missing' if x else 'complete'}"
+              f"-{'het' if h else 'hom'}" for m, p, x, h in MATRIX]
+
+
+def make_matrix_case(method, with_psi, with_missing, het, seed=0, n=25, k=1):
+    """(param arrays, data arrays, cfg kwargs, X with NaNs): the parameters,
+    rows and psi of tests/test_torch_phi.py's draw (m=4), with targets,
+    weights and the heteroscedastic fields from a second generator."""
+    params, cfg, X, psi = make_phi_case(method, with_psi, with_missing,
+                                        seed=seed, n=n, m=4)
+    rng = np.random.default_rng(seed + 100)
+    cfg.update(k=k, heteroscedastic=het)
+    params.update(ln_alpha=rng.standard_normal((4, k)),
+                  b=rng.standard_normal(k))
+    if het:
+        params["v"] = rng.standard_normal((4, k)) * 0.1
+        params["ln_tau"] = rng.standard_normal((4, k)) * 0.1
+    mask = ~np.isnan(X)
+    data = {"X": np.where(mask, X, 0.0), "mask": mask,
+            "omega": 0.5 + rng.random(n), "Y": rng.standard_normal((n, k)),
+            "psi": psi}
+    return params, data, cfg, X
+
+
+@pytest.mark.parametrize("method,with_psi,with_missing,het", MATRIX,
+                         ids=MATRIX_IDS)
+def test_nlog_ml_matrix_against_jax_and_the_oracle(method, with_psi,
+                                                   with_missing, het):
+    """Value, gradient and aux against gpz_tpu, and the value against the
+    and weights against the loopy NumPy oracle (tests/test_objective.py's
+    bounds)."""
+    from reference_impl import ref_nlog_ml
+
+    params, data, cfg, X = make_matrix_case(method, with_psi, with_missing,
+                                            het)
+    complete = not with_missing
+    jp, jd, jcfg = jax_side(params, data, cfg)
+    (jf, jaux), jg = jax.value_and_grad(
+        lambda p: jobj.nlog_ml(p, jd, jcfg, complete=complete),
+        has_aux=True)(jp)
+    tp, td, tcfg = torch_side(params, data, cfg)
+    flat, unravel = tp.flatten()
+    flat = flat.clone().requires_grad_(True)
+    nlml, aux = tobj.nlog_ml(unravel(flat), td, tcfg, complete=complete)
+    grad, = torch.autograd.grad(nlml, flat)
+    np.testing.assert_allclose(nlml.detach().numpy(), np.asarray(jf), **VALUE)
+    np.testing.assert_allclose(grad.numpy(), np.asarray(ravel_pytree(jg)[0]),
+                               **GRAD)
+    np.testing.assert_allclose(aux.w.numpy(), np.asarray(jaux.w), **GRAD)
+    np.testing.assert_allclose(aux.train_ll.numpy(),
+                               np.asarray(jaux.train_ll), **VALUE)
+    want, want_w = ref_nlog_ml(
+        X, data["Y"], data["psi"], data["omega"], params["P"],
+        params["gamma"], params["ln_alpha"], params["b"], params.get("v"),
+        params.get("ln_tau"), method)
+    np.testing.assert_allclose(nlml.detach().numpy(), want, rtol=1e-9)
+    np.testing.assert_allclose(aux.w.numpy(), want_w, rtol=1e-7, atol=1e-9)
+
+
+@pytest.mark.parametrize("method,with_psi,with_missing,het", MATRIX[2::2],
+                         ids=MATRIX_IDS[2::2])
+def test_posterior_holdout_and_prior_with_missing_values(method, with_psi,
+                                                         with_missing, het):
+    case = make_matrix_case(method, with_psi, with_missing, het, seed=1)[:3]
+    complete = not with_missing
+    jp, jd, jcfg = jax_side(*case)
+    tp, td, tcfg = torch_side(*case)
+    jpost = jobj.posterior(jp, jd, jcfg, complete=complete)
+    post = tobj.posterior(tp, td, tcfg, complete=complete)
+    for name in ("w", "iSigma_w", "logdet"):
+        np.testing.assert_allclose(getattr(post, name).numpy(),
+                                   np.asarray(getattr(jpost, name)), **GRAD)
+    vcase = make_matrix_case(method, with_psi, with_missing, het, seed=2,
+                             n=15)[:3]
+    _, jdv, _ = jax_side(*vcase)
+    _, tdv, _ = torch_side(*vcase)
+    jr, jl = jobj.holdout_metrics(jp, jpost.w, jdv, jcfg, complete=complete)
+    r, l = tobj.holdout_metrics(tp, post.w, tdv, tcfg, complete=complete)
+    np.testing.assert_allclose(r.numpy(), np.asarray(jr), **GRAD)
+    np.testing.assert_allclose(l.numpy(), np.asarray(jl), **GRAD)
+    np.testing.assert_allclose(
+        get_prior(tp, td, tcfg, complete=complete).numpy(),
+        np.asarray(jget_prior(jp, jd, jcfg, complete=complete)),
+        rtol=1e-8, atol=1e-12)
+
+
+@pytest.mark.parametrize("method", ["GL", "VL", "GD", "VD"])
+def test_flatten_order_of_the_diagonal_family(method):
+    params = make_matrix_case(method, False, False, True, seed=3)[0]
+    jflat, _ = ravel_pytree(
+        JParams(**{f: jnp.asarray(v) for f, v in params.items()}))
+    flat, unravel = GPzParams.from_numpy(params, "cpu",
+                                         torch.float64).flatten()
+    np.testing.assert_array_equal(flat.numpy(), np.asarray(jflat))
+    assert unravel(flat).gamma.shape == params["gamma"].shape

@@ -166,20 +166,44 @@ def test_port_matches_golden_file(dt, port_preds):
 
 @pytest.mark.parametrize("with_psi", [False, True], ids=["no-psi", "psi"])
 def test_missing_data_is_not_ported(with_psi):
+    """Missing data is ported, so the name is history: a NaN in a row of the
+    trained checkpoint's input is served, changes only that row (the others
+    now share a batch of four, and the float32 contractions depend on the
+    batch: GOLDEN_TOL's float32 bounds), and moves it away from its complete
+    prediction."""
     _, X, psi, _ = golden_rows(synthetic_sdss, datautils.split)
     X = X[:5].copy()
-    X[2, 1] = np.nan
+    psi = psi[:5] if with_psi else None
     model = gpz_tpu_torch.load_model(CHECKPOINT, device="cpu")
-    with pytest.raises(NotImplementedError, match="missing data"):
-        gpz_tpu_torch.predict(X, model, psi=psi[:5] if with_psi else None)
+    full = gpz_tpu_torch.predict(X, model, psi=psi)
+    X[2, 1] = np.nan
+    pred = gpz_tpu_torch.predict(X, model, psi=psi)
+    others = [0, 1, 3, 4]
+    for k in OUTPUTS + ("phi",):
+        got = getattr(pred, k)
+        assert np.isfinite(got).all(), k
+        rtol, atol = GOLDEN_TOL["float32"].get(k, (1e-5, 1e-9))
+        np.testing.assert_allclose(got[others], getattr(full, k)[others],
+                                   rtol=rtol, atol=atol)
+    assert pred.sigma[2, 0] > 0 and pred.mu[2, 0] != full.mu[2, 0]
 
 
 def test_diagonal_family_is_not_ported():
+    """The diagonal family is ported, so the name is history: VD with unit
+    gamma is the Gaussian exp(-|x - p|^2 / 2), and agrees with VC at
+    gamma = I."""
     _, (tp, _, _, _), X, _ = small_model(4)
     cfg = ModelConfig(m=M, d=D, method="VD", dtype="float64")
     params = GPzParams(P=tp.P, gamma=torch.ones(M, D, dtype=torch.float64),
                        ln_alpha=tp.ln_alpha, b=tp.b)
     Xt = torch.from_numpy(X)
-    with pytest.raises(NotImplementedError, match="diagonal family"):
-        tphi.design_matrix(params, cfg, Xt, torch.ones_like(Xt, dtype=bool),
-                           None, complete=True)
+    mask = torch.ones_like(Xt, dtype=bool)
+    PHI, _, _ = tphi.design_matrix(params, cfg, Xt, mask, None, complete=True)
+    want = torch.exp(-0.5 * torch.cdist(Xt, tp.P) ** 2)
+    torch.testing.assert_close(PHI, want, rtol=1e-12, atol=1e-14)
+    vc = GPzParams(P=tp.P, gamma=torch.eye(D, dtype=torch.float64).expand(
+        M, D, D).clone(), ln_alpha=tp.ln_alpha, b=tp.b)
+    PHI_vc, _, _ = tphi.design_matrix(
+        vc, ModelConfig(m=M, d=D, method="VC", dtype="float64"), Xt, mask,
+        None, complete=True)
+    torch.testing.assert_close(PHI, PHI_vc, rtol=1e-12, atol=1e-14)

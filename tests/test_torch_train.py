@@ -233,15 +233,22 @@ def test_train_without_validation_and_verbose_table(capsys):
 
 @pytest.mark.parametrize("case", ["diagonal-family", "missing-values"])
 def test_training_refuses_what_is_not_ported(case):
-    X, Y, _, tr, _ = problem()
+    """Nothing on the init / train path is refused any more, so the name is
+    history: the diagonal family and rows with NaNs initialize and train
+    (tests/test_torch_model_missing.py holds them against gpz_tpu)."""
+    X, Y, _, tr, va = problem()
     method = "VC"
     if case == "diagonal-family":
         method = "VD"
     else:
         X = X.copy()
         X[5, 2] = np.nan
-    with pytest.raises(NotImplementedError, match="not ported"):
-        gpz_tpu_torch.init(X, Y, method, M, training=tr, device="cpu")
+    model = gpz_tpu_torch.init(X, Y, method, M, training=tr, device="cpu",
+                               dtype="float64")
+    out = gpz_tpu_torch.train(model, X, Y, training=tr, validation=va,
+                              max_iter=2, verbose=False)
+    trace = out.fit_info["trace"]["f"]
+    assert np.isfinite(trace).all() and trace[-1] < trace[0]
 
 
 def test_objective_matches_the_training_golden_file(monkeypatch):

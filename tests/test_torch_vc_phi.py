@@ -386,7 +386,9 @@ def trained_site():
     _, X, psi, _ = golden_rows(synthetic_sdss, datautils.split)
     model = gpz_tpu_torch.load_model(CHECKPOINT, device="cpu").astype(
         "float64")
-    args, _ = chip_smoke.slice_inputs(model, X, psi)
+    _, sites = chip_smoke.site_calls(
+        lambda: gpz_tpu_torch.predict(X, model, psi=psi))
+    args = next(iter(sites.values()))[1]      # the first launch: the PHI site
     g = np.random.default_rng(12).standard_normal(
         (args[0].shape[0], args[2].shape[0]))
     return tuple(a.numpy() for a in args), g
