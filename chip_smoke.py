@@ -67,6 +67,37 @@ Phases, each printing its own lines; any failure exits non-zero:
                weights: init, 25 iterations, predict on the 12,000 test rows
                with NaNs. Trace finite, f non-increasing, f at iterations
                0..5 within MISSING_TOL of JAX's float64 trace
+12. cli        synthetic_sdss(100,000, seed=1) written as the CLI's CSV
+               (m_1..m_5,e_1..e_5,z); gpz_tpu_torch.cli.main train (VC,
+               m=100, 25 iterations, float64, seed 1; its 0.7 / 0.15 split
+               trains on 69,999 rows) in this process, then predict on the
+               15,001 rows the split leaves out. JSON lines parse, outputs
+               finite, launches equal what init + train and the predict
+               batches imply; the prediction CSV equals, byte for byte, the
+               one written from predict(X, load_model(checkpoint)) here and
+               the one `python -m gpz_tpu_torch predict` writes as a process;
+               the native read_csv equals np.loadtxt bit for bit and the
+               native library is in use. Times of read, train and predict
+13. ensemble   fit_ensemble on phase 7's problem: VC m=100, 4 restarts of
+               25 iterations, seed 1, float64. Scores finite, best_restart
+               their argmax, per-restart iterations and evaluations; the best
+               restart's parameters within RESTART_TOL of that restart trained
+               alone by minimize from init(seed=1 + r); launches the sum over
+               the restarts. Seconds per restart
+14. host-lbfgs minimize_host (the native two-loop recursion) for 25 iterations
+               on nlog_ml at 70,000 x 100 through a closure that copies x in
+               and (f, g) out as float64 NumPy: native library in use, f
+               finite and non-increasing, f at iteration 0 that of phase 7's
+               device minimize; its trace beside phase 7's (a report); time
+               per evaluation and the host copies' share
+15. derivcheck check_gradient on z -> nlog_ml(flat0 + U z) at the init point
+               on the first 4,096 training rows, U 32 seeded random unit
+               directions: ok, through the kernel pair (65 forward, 1
+               backward launches)
+16. bench      `python -m gpz_tpu_torch bench` as a process: one JSON line
+               with bench.py's keys and a finite positive value, printed
+               beside the card's name and power limit (a report, not a gate
+               on speed); then bench.main() in this process for its launches
 
 With --profile, one warm gradient evaluation at the training shape is also
 traced with torch.profiler and its kernel table printed.
@@ -84,6 +115,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -120,6 +152,15 @@ NORTH_STAR_ITERS = 175
 NORTH_STAR_BUDGET_S = 60.0      # continue only if the 25 iterations took less
 MAX_ATTEMPTS = 50
 TARGET_NLML = -2.67041538       # benchmarks/convergence_target.json
+
+# phases 12-16: the CLI's catalog (its 0.7 / 0.15 split of it trains on
+# 69,999 rows), restarts of the ensemble, directions of the gradient check
+CLI_ROWS = 100_000
+RESTARTS = 4
+DERIV_DIRECTIONS = 32
+# a restart of fit_ensemble against the same restart trained alone, (rtol,
+# atol) on the parameters: tests/test_torch_train.py's TRACE
+RESTART_TOL = (1e-7, 1e-9)
 
 # H100 SXM peaks for the bounds (NVIDIA's data sheet): device memory
 # 3.35 TB/s; FP64 34 TFLOP/s and FP32 67 TFLOP/s outside the tensor cores
@@ -544,6 +585,356 @@ def profile_evaluation(fun, flat):
           f"{total / traced_ms:.3f} of the traced wall")
     for key, count, ms in dev[:25]:
         print(f"profile: {ms:9.4f} ms  {count:4d} x  {key[:110]}")
+
+
+def reset_launches():
+    from gpz_tpu_torch.ops import vc_phi
+
+    vc_phi.LAUNCHES_FWD = vc_phi.LAUNCHES_BWD = 0
+
+
+def launches() -> tuple:
+    """(forward, backward) kernel launches since the last reset."""
+    from gpz_tpu_torch.ops import vc_phi
+
+    return vc_phi.LAUNCHES_FWD, vc_phi.LAUNCHES_BWD
+
+
+def cli_json(argv) -> tuple:
+    """(JSON lines, seconds) of one in-process gpz_tpu_torch.cli.main call,
+    synchronized; its other output (the training table) is swallowed."""
+    import contextlib
+    import io
+    import torch
+    from gpz_tpu_torch import cli
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(rc in (None, 0), f"cli {argv[0]}: exit {rc}")
+    return [json.loads(ln) for ln in buf.getvalue().splitlines()
+            if ln.startswith("{")], secs
+
+
+def phase_cli(workdir: str) -> dict:
+    """12. The CLI trains VC m=100 from a CSV of synthetic_sdss(100,000)
+    and serves the rows its split leaves out; {path: (fwd, bwd)}."""
+    import gpz_tpu_torch
+    from gpz_tpu_torch import datautils, native
+    from gpz_tpu_torch.data import synthetic_sdss
+    from gpz_tpu_torch.checkpoint import load_model
+
+    mags, errs, z = synthetic_sdss(CLI_ROWS, seed=1)
+    table = np.column_stack([mags, errs, z])
+    csv = os.path.join(workdir, "catalog.csv")
+    np.savetxt(csv, table, delimiter=",")
+    check(native.available(), "cli: the native library did not build; "
+          "read_csv runs its NumPy fallback")
+    t0 = time.perf_counter()
+    raw = native.read_csv(csv)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = np.loadtxt(csv, delimiter=",")
+    loadtxt_s = time.perf_counter() - t0
+    check(raw.dtype == ref.dtype and np.array_equal(raw, ref)
+          and np.array_equal(raw, table), "cli: native read_csv differs from "
+          "np.loadtxt of the same file")
+    # the CLI's split (gpz_tpu.cli: fractions 0.7 / 0.15, rng of --seed)
+    tr, va, te = datautils.split(CLI_ROWS, 0.7, 0.15, 1 - 0.7 - 0.15,
+                                 np.random.default_rng(1))
+    ckpt = os.path.join(workdir, "model.npz")
+    reset_launches()
+    lines, train_s = cli_json([
+        "train", csv, "--out", ckpt, "--method", "VC", "--m", str(TRAIN_M),
+        "--max-iter", str(TRAIN_ITERS), "--dtype", "float64", "--seed", "1"])
+    train_l = launches()
+    info = lines[-1]
+    check(set(info) == {"saved", "iterations", "fun_evals", "best_valid_ll",
+                        "train_seconds"} and np.isfinite(info["best_valid_ll"]),
+          f"cli train: JSON line {info}")
+    n_it, evals = info["iterations"], info["fun_evals"]
+    # phase 7's count, plus init's one forward (its posterior)
+    want = (1 + evals + (n_it + 1) + 4, evals)
+    print(f"cli: train on {int(tr.sum())} of {CLI_ROWS} rows ({int(va.sum())} "
+          f"validation): {n_it} iterations, {evals} evaluations in "
+          f"{train_s:.3f} s (init, training, checkpoint), best validation "
+          f"log-likelihood {info['best_valid_ll']:.6f}; launches fwd/bwd "
+          f"{train_l} (expected {want})")
+    check(n_it == TRAIN_ITERS, f"cli train: {n_it} iterations")
+    check(train_l == want, "cli train: launch counts differ from what init "
+          "+ train imply")
+
+    test_csv = os.path.join(workdir, "left_out.csv")
+    np.savetxt(test_csv, table[te], delimiter=",")
+    pred_csv = os.path.join(workdir, "pred.csv")
+    predict_argv = ["predict", test_csv, "--model", ckpt, "--out", pred_csv,
+                    "--has-target", "--has-errors"]
+    reset_launches()
+    lines, predict_s = cli_json(predict_argv)
+    predict_l = launches()
+    metrics = lines[0]
+    check(lines[-1] == {"wrote": pred_csv} and metrics["n"] == int(te.sum())
+          and np.isfinite([metrics["rmse"], metrics["mll"]]).all(),
+          f"cli predict: JSON lines {lines}")
+    model = load_model(ckpt)
+    want_p = (sum(expected_sites(model.cfg, complete_calls(
+        model.cfg, int(te.sum()))).values()), 0)
+    out = np.loadtxt(pred_csv, delimiter=",", skiprows=1)
+    check(out.shape == (int(te.sum()), 6) and np.isfinite(out).all(),
+          "cli predict: output not finite of the expected shape")
+    check(predict_l == want_p, f"cli predict: launches {predict_l}, the "
+          f"batches imply {want_p}")
+    # the same rows served in this process must give the same file
+    pred = gpz_tpu_torch.predict(table[te, :5], model,
+                                 psi=table[te, 5:10] ** 2)
+    mine = os.path.join(workdir, "pred_in_process.csv")
+    np.savetxt(mine, np.column_stack([
+        table[te, -1], pred.mu[:, 0], pred.sigma[:, 0], pred.nu[:, 0],
+        pred.beta_i[:, 0], pred.gamma[:, 0]]), delimiter=",",
+        header="target,mu,sigma,nu,beta_i,gamma", comments="")
+    with open(pred_csv, "rb") as a, open(mine, "rb") as b:
+        check(a.read() == b.read(), "cli predict: its CSV differs from "
+              "predict(X, load_model(checkpoint)) written the same way")
+    sub_csv = os.path.join(workdir, "pred_subprocess.csv")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "gpz_tpu_torch", "predict",
+                          test_csv, "--model", ckpt, "--out", sub_csv,
+                          "--has-target", "--has-errors"],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    sub_s = time.perf_counter() - t0
+    check(res.returncode == 0, "python -m gpz_tpu_torch predict: exit "
+          f"{res.returncode}\n{res.stderr[-2000:]}")
+    with open(pred_csv, "rb") as a, open(sub_csv, "rb") as b:
+        check(a.read() == b.read(), "python -m gpz_tpu_torch predict wrote "
+              "other bytes than the in-process call")
+    print(f"cli: read {CLI_ROWS} x {raw.shape[1]} CSV in {read_s:.3f} s "
+          f"(native; np.loadtxt {loadtxt_s:.3f} s, bit-identical); predict "
+          f"{int(te.sum())} rows in {predict_s:.3f} s (load, read, serve, "
+          f"write), test RMSE {metrics['rmse']:.6f}, mean log-likelihood "
+          f"{metrics['mll']:.6f}, launches fwd/bwd {predict_l} (expected "
+          f"{want_p}); CSV equal to the in-process prediction's bytes, and "
+          f"to `python -m gpz_tpu_torch predict`'s ({sub_s:.1f} s as a "
+          f"process)")
+    return {"cli_train": train_l, "cli_predict": predict_l}
+
+
+def phase_ensemble(X, Y, psi, tr, va) -> tuple:
+    """13. fit_ensemble, 4 restarts of VC m=100 on the training problem; the
+    best restart against itself trained alone; (fwd, bwd) launches."""
+    import torch
+    import gpz_tpu_torch
+    from gpz_tpu_torch import datautils
+    from gpz_tpu_torch import model as model_mod
+    from gpz_tpu_torch.objective import holdout_metrics
+    from gpz_tpu_torch.optim import minimize
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, info = gpz_tpu_torch.fit_ensemble(
+        X, Y, "VC", TRAIN_M, n_restarts=RESTARTS, training=tr,
+        validation=va, psi=psi, max_iter=TRAIN_ITERS, seed=1,
+        dtype="float64")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = launches()
+    scores, best = info["restart_scores"], info["best_restart"]
+    its, evals = info["iterations"], info["fun_evals"]
+    check(np.isfinite(scores).all() and scores.shape == (RESTARTS,)
+          and best == int(np.argmax(scores)), f"ensemble: scores {scores}, "
+          f"best restart {best}")
+    check(its.shape == evals.shape == (RESTARTS,), "ensemble: iterations "
+          "and evaluations are not per-restart arrays")
+    # per restart: init's posterior, then the restart's training; the chosen
+    # restart's `last` and `best` are resolved once
+    want = (RESTARTS + int(evals.sum()) + int(its.sum()) + RESTARTS + 4,
+            int(evals.sum()))
+
+    # the best restart trained alone, from its own init
+    alone = gpz_tpu_torch.init(X, Y, "VC", TRAIN_M, psi=psi, training=tr,
+                               seed=1 + best, dtype="float64")
+    cfg = alone.cfg
+    Xn = (X - alone.muX[None, :]) / alone.sdX[None, :]
+    Yc = Y[:, None] - alone.muY[None, :]
+    psi_c = datautils.fix_psi(psi, len(Y), alone.sdX, True)
+    dev = alone.last.params.P.device
+    data_tr = model_mod._make_dataset(Xn, Yc, psi_c, np.ones(len(Y)), tr,
+                                      torch.float64, dev)
+    data_va = model_mod._make_dataset(Xn, Yc, psi_c, np.ones(len(Y)), va,
+                                      torch.float64, dev)
+    flat0, unravel = alone.last.params.flatten()
+
+    def score_fn(flat, aux):
+        rmse, ll = holdout_metrics(unravel(flat), aux.w, data_va, cfg,
+                                   complete=True)
+        return ll, {"valid_rmse": rmse, "valid_ll": ll}
+
+    res = minimize(model_mod._objective(unravel, data_tr, cfg, True), flat0,
+                   max_iter=TRAIN_ITERS, score_fn=score_fn)
+    rtol, atol = RESTART_TOL
+    diffs = {}
+    for which, want_flat in (("best", res.x_best), ("last", res.x)):
+        flat = getattr(model, which).params.flatten()[0]
+        err = (flat - want_flat).abs()
+        diffs[which] = float(err.max())
+        check(bool((err <= atol + rtol * want_flat.abs()).all()),
+              f"ensemble: the {which} parameters of restart {best} differ "
+              f"from the restart trained alone by {diffs[which]:.3e}")
+    check(res.iterations == its[best] and res.fun_evals == evals[best]
+          and abs(res.best_score - scores[best])
+          <= atol + rtol * abs(scores[best]), "ensemble: restart "
+          f"{best} alone took {res.iterations} iterations, {res.fun_evals} "
+          f"evaluations, score {res.best_score}")
+    print(f"ensemble: {RESTARTS} restarts of VC m={TRAIN_M}, {TRAIN_ITERS} "
+          f"iterations each, in {secs:.3f} s ({secs / RESTARTS:.3f} s per "
+          f"restart, init included); scores {np.round(scores, 6).tolist()}, "
+          f"best restart {best}; evaluations {evals.tolist()}; restart "
+          f"{best} trained alone: largest parameter difference best "
+          f"{diffs['best']:.3e}, last {diffs['last']:.3e}; launches fwd/bwd "
+          f"{got} (expected {want})")
+    check(got == want, "ensemble: launch counts differ from the sum over "
+          "the restarts")
+    return got
+
+
+def phase_host_lbfgs(model, X, Y, psi, tr, device_trace) -> tuple:
+    """14. minimize_host on nlog_ml at the training shape through a closure
+    that copies x in and (f, g) out; (fwd, bwd) launches."""
+    import torch
+    from gpz_tpu_torch import datautils, native
+    from gpz_tpu_torch import model as model_mod
+    from gpz_tpu_torch.optim import minimize_host
+
+    Xn = (X - model.muX[None, :]) / model.sdX[None, :]
+    Yc = Y[:, None] - model.muY[None, :]
+    psi_c = datautils.fix_psi(psi, len(Y), model.sdX, True)
+    flat0, unravel = model.last.params.flatten()
+    dev = flat0.device
+    data = model_mod._make_dataset(Xn, Yc, psi_c, np.ones(len(Y)), tr,
+                                   torch.float64, dev)
+    fun = model_mod._objective(unravel, data, model.cfg, True)
+    clock = {"copies": 0.0, "total": 0.0}
+
+    def host_fun(x):
+        t0 = time.perf_counter()
+        xt = torch.as_tensor(x, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        f, g, _ = fun(xt)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out = float(f), g.cpu().numpy()
+        t3 = time.perf_counter()
+        clock["copies"] += (t1 - t0) + (t3 - t2)
+        clock["total"] += t3 - t0
+        return out
+
+    check(native.available(), "host-lbfgs: the native library is not in "
+          "use (NumPy fallback)")
+    reset_launches()
+    t0 = time.perf_counter()
+    res = minimize_host(host_fun, flat0.cpu().numpy(), max_iter=TRAIN_ITERS)
+    secs = time.perf_counter() - t0
+    got = launches()
+    f = np.array([t[0] for t in res.trace])
+    check(np.isfinite(f).all() and bool(np.all(np.diff(f) <= 0)),
+          "host-lbfgs: f not finite or not non-increasing")
+    check(abs(f[0] - device_trace[0]) <= 1e-12 * abs(device_trace[0]),
+          f"host-lbfgs: f at iteration 0 {f[0]!r} differs from the device "
+          f"minimize's {device_trace[0]!r}")
+    k = min(len(f), len(device_trace))
+    print(f"host-lbfgs: {res.iterations} iterations, {res.fun_evals} "
+          f"evaluations, status {res.status}, in {secs:.3f} s; per "
+          f"evaluation {clock['total'] / res.fun_evals * 1e3:.3f} ms, of which "
+          f"the host copies {clock['copies'] / clock['total']:.3f}; f[0] "
+          f"{'equal to' if f[0] == device_trace[0] else 'within 1e-12 of'} "
+          f"the device minimize's; f at iterations 0..{k - 1} minus the "
+          f"device minimize's: max |diff| {np.abs(f[:k] - device_trace[:k]).max():.3e}; "
+          f"final f {f[-1]:.10f} (device {device_trace[-1]:.10f}); launches "
+          f"fwd/bwd {got}")
+    check(got == (res.fun_evals, res.fun_evals), "host-lbfgs: launches "
+          "differ from one forward and one backward per evaluation")
+    return got
+
+
+def phase_derivcheck(model, X, Y, psi, tr) -> tuple:
+    """15. check_gradient on nlog_ml(flat0 + U z) at 4,096 rows, U 32
+    seeded unit directions; (fwd, bwd) launches."""
+    import torch
+    from gpz_tpu_torch import datautils
+    from gpz_tpu_torch.model import _make_dataset
+    from gpz_tpu_torch.objective import nlog_ml
+    from gpz_tpu_torch.optim import check_gradient
+    from make_torch_port_golden import objective_rows
+
+    Xn = (X - model.muX[None, :]) / model.sdX[None, :]
+    Yc = Y[:, None] - model.muY[None, :]
+    psi_c = datautils.fix_psi(psi, len(Y), model.sdX, True)
+    flat0, unravel = model.last.params.flatten()
+    dev = flat0.device
+    data = _make_dataset(Xn, Yc, psi_c, np.ones(len(Y)), objective_rows(tr),
+                         torch.float64, dev)
+    U = np.random.default_rng(15).standard_normal((flat0.numel(),
+                                                   DERIV_DIRECTIONS))
+    U = torch.as_tensor(U / np.linalg.norm(U, axis=0), device=dev)
+
+    def f(zt):
+        return nlog_ml(unravel(flat0 + U @ zt), data, model.cfg,
+                       complete=True)[0]
+
+    reset_launches()
+    t0 = time.perf_counter()
+    ok, err = check_gradient(f, torch.zeros(DERIV_DIRECTIONS,
+                                            dtype=torch.float64, device=dev))
+    secs = time.perf_counter() - t0
+    got = launches()
+    want = (1 + 2 * DERIV_DIRECTIONS, 1)
+    print(f"derivcheck: nlog_ml on {data.n} rows along {DERIV_DIRECTIONS} "
+          f"random unit directions: ok {ok}, max abs error {err:.3e}, in "
+          f"{secs:.3f} s; launches fwd/bwd {got} (expected {want})")
+    check(ok, f"derivcheck: autograd through the kernel pair disagrees with "
+          f"central differences (max abs error {err:.3e})")
+    check(got == want, "derivcheck: launch counts differ")
+    return got
+
+
+def phase_bench(smi: str) -> tuple:
+    """16. `python -m gpz_tpu_torch bench` as a process; then bench.main()
+    in this process for its launches; (fwd, bwd)."""
+    import contextlib
+    import io
+    from gpz_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "gpz_tpu_torch", "bench"],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    secs = time.perf_counter() - t0
+    check(res.returncode == 0, f"bench: exit {res.returncode}\n"
+          f"{res.stderr[-2000:]}")
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
+    check(len(lines) == 1, f"bench: {len(lines)} JSON lines")
+    out = json.loads(lines[0])
+    check(set(out) == {"metric", "value", "unit", "vs_baseline"}
+          and out["metric"] == "logML_grad_evals_per_sec_VC_m100_n100k"
+          and np.isfinite(out["value"]) and out["value"] > 0,
+          f"bench: {out}")
+    print(f"bench: {lines[0]} on {smi} ({secs:.1f} s as a process)")
+    reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bench.main()
+    got = launches()
+    want = (2 * bench.ITERS, 2 * bench.ITERS)  # warm-up run + timed run
+    print(f"bench: in this process {buf.getvalue().strip()}; launches "
+          f"fwd/bwd {got} (expected {want})")
+    check(got == want, "bench: launch counts differ")
+    return got
 
 
 def main(argv) -> int:
@@ -1172,15 +1563,27 @@ def main(argv) -> int:
           f"({len(rows) / vsec:.1f} rows/s, first call), test RMSE "
           f"{metrics.rmse_curve(z[rows], vpred.mu[:, 0], vpred.sigma[:, 0])[-1]:.6f}")
 
+    # 12-16: the command line, restart ensembles, the host optimizer, the
+    # gradient check and the bench command, each read with its own counts
+    with tempfile.TemporaryDirectory() as workdir:
+        new_paths = phase_cli(workdir)
+    new_paths["ensemble"] = phase_ensemble(X, Y, psi, tr, va)
+    new_paths["host_lbfgs"] = phase_host_lbfgs(model, X, Y, psi, tr,
+                                               trace["f"])
+    new_paths["derivcheck"] = phase_derivcheck(model, X, Y, psi, tr)
+    new_paths["bench"] = phase_bench(smi)
+    new_fwd = sum(f for f, _ in new_paths.values())
+    new_bwd = sum(b for _, b in new_paths.values())
 
     n_, m_, d_ = big[0].shape[0], big[2].shape[0], big[0].shape[1]
     source = "gpz_tpu_torch/csrc/vc_phi.cu"
     kernels = [{
         "name": "vc_lnphi_fwd", "route": "cuda", "source": source,
         "replaces": "gpz_tpu/ops/vc_phi.py:126",
-        "launches": serve_launches + path_fwd + missing_launches,
+        "launches": serve_launches + path_fwd + missing_launches + new_fwd,
         "launches_by_path": {"serve": serve_launches, "train": path_fwd,
-                             "missing_serve": missing_launches},
+                             "missing_serve": missing_launches,
+                             **{k_: f for k_, (f, _) in new_paths.items()}},
         "max_abs_err": max(c["max_abs_err"] for c in (
             fwd_big, *serve_cases.values(), *mix_cases.values())),
         "sites": {**serve_cases, **mix_cases},
@@ -1192,9 +1595,10 @@ def main(argv) -> int:
     }, {
         "name": "vc_lnphi_bwd", "route": "cuda", "source": source,
         "replaces": "gpz_tpu/ops/vc_phi.py:138",
-        "launches": path_bwd,
+        "launches": path_bwd + new_bwd,
         "launches_by_path": {"serve": 0, "train": path_bwd,
-                             "missing_serve": 0},
+                             "missing_serve": 0,
+                             **{k_: b for k_, (_, b) in new_paths.items()}},
         "max_abs_err": max(bwd_errs),
         "shape": [n_, m_, d_, "float64"],
         **bwd_rec["70000x100"],

@@ -18,6 +18,13 @@ function on complete rows and its gradient run as the kernels in
 csrc/vc_phi.cu (built with nvcc at first use), in training and at every site
 of prediction, the mixture sums of missing-data prediction included; on CPU
 tensors they run as the same functions in plain PyTorch.
+
+Also ported: multi-restart ensembles (`fit_ensemble`, restarts trained one
+after another on one device, `device=None` the CUDA device), the command line (`python -m gpz_tpu_torch
+train|predict|bench`, cli.py and bench.py), the native C++ host kernels
+(native/: the CSV reader, the host L-BFGS recursion, the modified Cholesky;
+built with g++ at first use) and the host optimizers (optim: `minimize_host`,
+`minimize_any` with its twelve methods, `check_gradient`).
 """
 
 from gpz_tpu_torch.config import ModelConfig, PredictConfig, TrainConfig
@@ -30,6 +37,7 @@ from gpz_tpu_torch.optim import minimize
 from gpz_tpu_torch.checkpoint import (
     load_model, save_model, train_with_checkpoints,
 )
+from gpz_tpu_torch.ensemble import fit_ensemble
 
 __all__ = [
     "ModelConfig",
@@ -47,4 +55,5 @@ __all__ = [
     "load_model",
     "save_model",
     "train_with_checkpoints",
+    "fit_ensemble",
 ]

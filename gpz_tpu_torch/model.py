@@ -157,6 +157,37 @@ def _complete(data: Dataset) -> bool:
     return bool(data.mask.all())
 
 
+def _objective(unravel, data: Dataset, cfg64: ModelConfig, complete: bool):
+    """fun(flat) -> (nlml, flat gradient, aux) of nlog_ml on `data`, the
+    objective that `optim.minimize` takes (float64 flat parameters)."""
+
+    def fun(flat):
+        flat = flat.detach().requires_grad_(True)
+        with torch.enable_grad():
+            nlml, aux = nlog_ml(unravel(flat), data, cfg64, complete=complete)
+            grad, = torch.autograd.grad(nlml, flat)
+        return nlml.detach(), grad, aux
+
+    return fun
+
+
+def _resolve(flat, score, unravel, data: Dataset, cfg64: ModelConfig,
+             complete: bool, dtype: str) -> ParamSet:
+    """The ParamSet of float64 flat parameters: posterior state and priors
+    computed in float64 on the training rows, everything stored in `dtype`."""
+    dt = getattr(torch, dtype)
+    params = unravel(flat)
+    post = posterior(params, data, cfg64, complete=complete)
+    priors = get_prior(params, data, cfg64, complete=complete)
+    return ParamSet(
+        params=unravel(flat.to(dt).clone()),
+        post=Posterior(w=post.w.to(dt), iSigma_w=post.iSigma_w.to(dt),
+                       logdet=post.logdet.to(dt)),
+        priors=priors.to(dt),
+        score=score,
+    )
+
+
 def init(
     X,
     Y,
@@ -313,13 +344,7 @@ def train(
     flat0, unravel = model.last.params.astype(f64).flatten()
     x_best0 = model.best.params.astype(f64).flatten()[0]
 
-    def fun(flat):
-        flat = flat.detach().requires_grad_(True)
-        with torch.enable_grad():
-            nlml, aux = nlog_ml(unravel(flat), data_tr, cfg64,
-                                complete=complete_tr)
-            grad, = torch.autograd.grad(nlml, flat)
-        return nlml.detach(), grad, aux
+    fun = _objective(unravel, data_tr, cfg64, complete_tr)
 
     score_fn = None
     if has_valid:
@@ -351,23 +376,10 @@ def train(
         iter_callback=_LiveRowPrinter(has_valid) if tc.verbose else None,
     )
 
-    dt = getattr(torch, cfg.dtype)
-
-    def resolve(flat, score) -> ParamSet:
-        # derived state is computed in float64 and stored in the model dtype
-        params = unravel(flat)
-        post = posterior(params, data_tr, cfg64, complete=complete_tr)
-        priors = get_prior(params, data_tr, cfg64, complete=complete_tr)
-        return ParamSet(
-            params=unravel(flat.to(dt).clone()),
-            post=Posterior(w=post.w.to(dt), iSigma_w=post.iSigma_w.to(dt),
-                           logdet=post.logdet.to(dt)),
-            priors=priors.to(dt),
-            score=score,
-        )
-
-    last = resolve(res.x, res.best_score if not has_valid else -math.inf)
-    best = resolve(res.x_best, res.best_score)
+    state = (unravel, data_tr, cfg64, complete_tr, cfg.dtype)
+    last = _resolve(res.x, res.best_score if not has_valid else -math.inf,
+                    *state)
+    best = _resolve(res.x_best, res.best_score, *state)
 
     fit_info = {
         "iterations": res.iterations,

@@ -17,6 +17,7 @@ from gpz_tpu import metrics as jmetrics
 from gpz_tpu.data import photoz as jphotoz
 
 import gpz_tpu_torch
+from gpz_tpu_torch import cli
 from gpz_tpu_torch import datautils as tdu
 from gpz_tpu_torch import metrics as tmetrics
 from gpz_tpu_torch.data import photoz as tphotoz
@@ -238,7 +239,8 @@ def test_normalization_stats_and_metrics_are_gpz_tpus():
 def test_import_leaves_jax_out():
     code = (
         "import sys, gpz_tpu_torch, gpz_tpu_torch.data, gpz_tpu_torch.ops, "
-        "gpz_tpu_torch.metrics\n"
+        "gpz_tpu_torch.metrics, gpz_tpu_torch.cli, gpz_tpu_torch.ensemble, "
+        "gpz_tpu_torch.native, gpz_tpu_torch.optim, gpz_tpu_torch.bench\n"
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'gpz_tpu'))\n"
         "assert not bad, bad\n"
@@ -250,17 +252,26 @@ def test_import_leaves_jax_out():
     assert gpz_tpu.__name__ == "gpz_tpu"  # the reference, imported here only
 
 
-def test_entry_points_default_to_the_gpu_and_never_to_the_cpu():
-    """load_model and init without a device go to the CUDA device: on a
-    machine without one they raise torch's error and return nothing that
-    lives on the CPU."""
+def test_entry_points_default_to_the_gpu_and_never_to_the_cpu(tmp_path):
+    """load_model, init, fit_ensemble and the CLI's train without a device
+    go to the CUDA device: on a machine without one they raise torch's error
+    and return nothing that lives on the CPU."""
     if torch.cuda.is_available():
         model = gpz_tpu_torch.load_model(CHECKPOINT)
         assert model.best.params.P.device.type == "cuda"
         return
     rng = np.random.default_rng(0)
     X, Y = rng.standard_normal((40, 2)), rng.standard_normal(40)
+    csv = tmp_path / "in.csv"
+    np.savetxt(csv, np.column_stack([X, np.full_like(X, 0.1), Y]),
+               delimiter=",")
+    ckpt = tmp_path / "out.npz"
     for call in (lambda: gpz_tpu_torch.load_model(CHECKPOINT),
-                 lambda: gpz_tpu_torch.init(X, Y, "VC", 4)):
+                 lambda: gpz_tpu_torch.init(X, Y, "VC", 4),
+                 lambda: gpz_tpu_torch.fit_ensemble(X, Y, "VL", 4,
+                                                    n_restarts=2, max_iter=1),
+                 lambda: cli.main(["train", str(csv), "--out", str(ckpt),
+                                   "--m", "4", "--max-iter", "1"])):
         with pytest.raises((RuntimeError, AssertionError), match="(?i)cuda"):
             call()
+    assert not ckpt.exists()

@@ -232,10 +232,9 @@ def test_train_without_validation_and_verbose_table(capsys):
 
 
 @pytest.mark.parametrize("case", ["diagonal-family", "missing-values"])
-def test_training_refuses_what_is_not_ported(case):
-    """Nothing on the init / train path is refused any more, so the name is
-    history: the diagonal family and rows with NaNs initialize and train
-    (tests/test_torch_model_missing.py holds them against gpz_tpu)."""
+def test_diagonal_family_and_rows_with_nans_train(case):
+    """The diagonal family and rows with NaNs initialize and train, and f
+    falls (tests/test_torch_model_missing.py holds them against gpz_tpu)."""
     X, Y, _, tr, va = problem()
     method = "VC"
     if case == "diagonal-family":
