@@ -98,6 +98,27 @@ Phases, each printing its own lines; any failure exits non-zero:
                with bench.py's keys and a finite positive value, printed
                beside the card's name and power limit (a report, not a gate
                on speed); then bench.main() in this process for its launches
+17. inference  posterior inference over the hyperparameters of the checkpoint
+               cast to float64 on its 4,000 training rows (p = 3,301):
+               (a) one batched evaluation of 4 jittered points against the 4
+               single nlog_ml evaluations in turn, here and at phase 7's
+               70,000 rows with the trained parameters: equal within
+               BATCH_TOL, 1 forward and 1 backward launch against 4 and 4,
+               median times and host syncs; (b) the log posterior and its
+               gradient at 4 points, one HMC and one NUTS transition given
+               JAX's draws and 3 ADVI steps given JAX's eps, within
+               INFERENCE_TOL of tests/data/torch_port_golden_inference.npz;
+               (c) sample_posterior with HMC and (d) with NUTS, 4 chains:
+               finite draws, acceptance, step size, split-Rhat, effective
+               sizes, seconds per evaluation and per effective draw, the
+               evaluations counted by wrapping the target and the launches
+               equal to them; (e) predictive_draws on the 12,000 test rows,
+               2 forward launches per draw, beside the MAP prediction; (f)
+               advi_fit, 200 steps of 8 draws, one launch pair per step;
+               (g) the kernel pair against its plain versions at every shape
+               that (c)-(f) launched (recorded from that run, the shapes'
+               counts held to what the run implies; the backward on the
+               cotangent the run gave it), with times and bounds
 
 With --profile, one warm gradient evaluation at the training shape is also
 traced with torch.profiler and its kernel table printed.
@@ -109,6 +130,7 @@ no result. It never imports JAX.
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
 import os
@@ -161,6 +183,23 @@ DERIV_DIRECTIONS = 32
 # a restart of fit_ensemble against the same restart trained alone, (rtol,
 # atol) on the parameters: tests/test_torch_train.py's TRACE
 RESTART_TOL = (1e-7, 1e-9)
+
+# phase 17: chains, depths of the two samplers' runs, ADVI's steps, and the
+# draws predictive_draws takes from the HMC run
+INF_CHAINS = 4
+HMC_WARMUP, HMC_DRAWS = 100, 100
+NUTS_WARMUP, NUTS_DRAWS, NUTS_MAX_DEPTH = 50, 50, 6
+ADVI_FIT_STEPS, ADVI_FIT_MC = 200, 8
+PREDICTIVE_DRAWS = 40
+# one batched evaluation of C points against the C single nlog_ml
+# evaluations on the card, (rtol, atol) on nlml and its flat gradient: the
+# same float64 formulas through batched products instead of single ones, so
+# rounding only, amplified by the conditioning of the m x m solve: the
+# value as TRAIN_TOL's "trained.nlml" (3.9e-10 relative measured at 70,000
+# rows on an H100), the gradient in gamma resolved to ~2e-6 absolute
+# (TRAIN_TOL's "trained.grad"; batched against single differed by up to
+# 1.4e-5 of 8.6e-2 in a CPU rehearsal at the checkpoint)
+BATCH_TOL = {"nlml": (1e-9, 0.0), "grad": (1e-6, 5e-5)}
 
 # H100 SXM peaks for the bounds (NVIDIA's data sheet): device memory
 # 3.35 TB/s; FP64 34 TFLOP/s and FP32 67 TFLOP/s outside the tensor cores
@@ -346,33 +385,50 @@ def compare_backward(name, args, g, tol):
     return max_abs
 
 
-def site_calls(fn):
-    """Run fn() with predict.vc_lnphi_complete recorded: (fn's result,
-    {(rows, bases): [launches, the arguments of the first]}), in the order
-    the shapes were first launched."""
-    # the module, not the package's `predict` function of the same name
-    predict_mod = importlib.import_module("gpz_tpu_torch.predict")
-    real = predict_mod.vc_lnphi_complete
-    sites = {}
+@contextlib.contextmanager
+def recording(module: str, name: str, sites: dict):
+    """Record the calls of a kernel wrapper, module.<name>, while the block
+    runs: sites {(rows, bases): [calls, the arguments of the first]}, in the
+    order the shapes were first launched."""
+    mod = importlib.import_module(module)
+    real = getattr(mod, name)
 
     def record(*args):
         shape = (args[0].shape[0], args[2].shape[0])
         if shape not in sites:
-            sites[shape] = [0, tuple(a.clone() for a in args)]
+            sites[shape] = [0, tuple(a.detach().clone() for a in args)]
         sites[shape][0] += 1
         return real(*args)
 
-    predict_mod.vc_lnphi_complete = record
+    setattr(mod, name, record)
     try:
-        result = fn()
+        yield sites
     finally:
-        predict_mod.vc_lnphi_complete = real
+        setattr(mod, name, real)
+
+
+@contextlib.contextmanager
+def pair_recorded(fwd_sites: dict, bwd_sites: dict):
+    """Record the design-matrix kernel pair's calls from the objective while
+    the block runs: the forward where phi calls it, the backward where the
+    autograd function calls it (with the cotangent it is given)."""
+    with recording("gpz_tpu_torch.phi", "vc_lnphi_complete", fwd_sites), \
+            recording("gpz_tpu_torch.ops.vc_phi", "vc_lnphi_bwd", bwd_sites):
+        yield
+
+
+def site_calls(fn):
+    """Run fn() with predict.vc_lnphi_complete recorded: (fn's result,
+    sites)."""
+    # the module, not the package's `predict` function of the same name
+    with recording("gpz_tpu_torch.predict", "vc_lnphi_complete", {}) as sites:
+        result = fn()
     return result, sites
 
 
-def compare_sites(prefix, sites, per):
-    """compare_kernel at every recorded shape of a serving path, with the
-    shape's launches and its bound; {name: record}."""
+def compare_sites(prefix, sites, per, key="launches_per_request"):
+    """compare_kernel at every recorded shape of a path, with the shape's
+    launches (under `key`) and its bound; {name: record}."""
     recs = {}
     for (n, bases), (count, args) in sites.items():
         name = f"{prefix}-{n}x{bases}"
@@ -380,10 +436,37 @@ def compare_sites(prefix, sites, per):
         rec = compare_kernel(name, args, KERNEL_TOL["trained"],
                              plain_timing=slow)
         b = bound("fwd", n, bases, args[0].shape[1], "float64")
-        rec.update(shape=[n, bases], launches_per_request=count,
-                   bound_ms=b["bound_ms"])
+        rec.update({"shape": [n, bases], key: count,
+                    "bound_ms": b["bound_ms"]})
         print(f"site {name} d={args[0].shape[1]} f64: {count} launches per "
               f"{per}; bound {b['bound_ms']:.5f} ms by {b['bound_by']} (bytes "
+              f"{b['bytes_ms']:.5f}, operations {b['ops_ms']:.5f}); kernel "
+              f"{rec['ms'] / b['bound_ms']:.2f}x its bound")
+        recs[name] = rec
+    return recs
+
+
+def compare_bwd_sites(prefix, sites, per):
+    """compare_backward at every recorded shape of a path, on the cotangent
+    the path gave the kernel there, with the shape's launches, the kernel's
+    and the plain backward's times and its bound; {name: record}."""
+    from gpz_tpu_torch.ops import vc_phi
+
+    few = dict(trials=5, calls=5, warmup=2)
+    recs = {}
+    for (n, bases), (count, args) in sites.items():
+        name = f"{prefix}-bwd-{n}x{bases}"
+        d = args[0].shape[1]
+        rec = {"max_abs_err": compare_backward(name, args, args[4],
+                                               KERNEL_BWD_TOL["trained"]),
+               "ms": median_ms(lambda: vc_phi.vc_lnphi_bwd(*args), **few),
+               "plain_ms": median_ms(lambda: vc_phi.vc_lnphi_bwd_plain(*args),
+                                     **few)}
+        b = bound("bwd", n, bases, d, "float64")
+        rec.update(shape=[n, bases], launches=count, bound_ms=b["bound_ms"])
+        print(f"site {name} d={d} f64: {count} launches per {per}; kernel "
+              f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+              f"{b['bound_ms']:.5f} ms by {b['bound_by']} (bytes "
               f"{b['bytes_ms']:.5f}, operations {b['ops_ms']:.5f}); kernel "
               f"{rec['ms'] / b['bound_ms']:.2f}x its bound")
         recs[name] = rec
@@ -935,6 +1018,389 @@ def phase_bench(smi: str) -> tuple:
           f"fwd/bwd {got} (expected {want})")
     check(got == want, "bench: launch counts differ")
     return got
+
+
+def host_ms(fn) -> float:
+    """Host-clock milliseconds of one fn(), synchronized before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def count_syncs(fn) -> int:
+    """cudaStreamSynchronize calls of one fn() under torch.profiler: the
+    host waiting on the card (a read of a device value, a copy from the
+    host's pageable memory)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+    return sum(e.count for e in prof.key_averages()
+               if e.key == "cudaStreamSynchronize")
+
+
+def effective_sizes(samples: np.ndarray) -> np.ndarray:
+    """Effective sample size per dimension of draws (chains, draws, p):
+    Stan's multi-chain estimator, autocorrelations by FFT and Geyer's
+    initial monotone sequence of pair sums."""
+    C, S, _ = samples.shape
+    x = samples - samples.mean(axis=1, keepdims=True)
+    f = np.fft.rfft(x, n=2 * S, axis=1)
+    acov = np.fft.irfft(f * np.conj(f), n=2 * S, axis=1)[:, :S] / S
+    W = (acov[:, 0] * S / (S - 1)).mean(0)
+    var_plus = W * (S - 1) / S + samples.mean(axis=1).var(axis=0, ddof=1)
+    rho = 1.0 - (W - acov.mean(0)) / var_plus             # (S, p)
+    K = S // 2
+    pairs = rho[0:2 * K:2] + rho[1:2 * K:2]
+    pairs = np.where(np.cumprod(pairs > 0, axis=0).astype(bool), pairs, 0.0)
+    tau = -1.0 + 2.0 * np.minimum.accumulate(pairs, axis=0).sum(0)
+    return C * S / np.maximum(tau, 1e-3)
+
+
+def within(name, got, want, tol) -> float:
+    """Largest err / (atol + rtol |want|) of got against want (host arrays);
+    fails beyond 1."""
+    rtol, atol = tol
+    got, want = np.asarray(got, dtype=np.float64), np.asarray(want,
+                                                              dtype=np.float64)
+    check(got.shape == want.shape and np.isfinite(got).all(),
+          f"{name}: shape {got.shape} or non-finite values")
+    err = np.abs(got - want)
+    ratio = float(np.max(err / (atol + rtol * np.abs(want)))) if err.max() \
+        else 0.0
+    print(f"inference {name}: max_abs_err {err.max():.3e} of max "
+          f"{np.abs(want).max():.3e} (err/bound {ratio:.3f})")
+    check(ratio <= 1.0, f"{name}: beyond rtol={rtol}, atol={atol}")
+    return ratio
+
+
+def single_and_batched(unravel, data, cfg, complete=True):
+    """(nlml of a batch (C, p) in one nlog_ml_batched call, the same by C
+    nlog_ml calls one after another)."""
+    import torch
+    from gpz_tpu_torch.objective import nlog_ml, nlog_ml_batched
+
+    def batched(x):
+        return nlog_ml_batched(x, unravel, data, cfg, complete)
+
+    def single(x):
+        return torch.stack([nlog_ml(unravel(r), data, cfg,
+                                    complete=complete)[0] for r in x])
+
+    return batched, single
+
+
+def compare_batched(label, batched, single, X) -> dict:
+    """(a) one batched evaluation of the C rows of X against C single ones:
+    values and gradients within BATCH_TOL, launches (1, 1) against (C, C),
+    median host times of the two in turn and their host syncs."""
+    from gpz_tpu_torch.inference.mcmc import _value_and_grad
+
+    C = X.shape[0]
+    reset_launches()
+    fb, gb = _value_and_grad(batched, X)
+    lb = launches()
+    reset_launches()
+    fs, gs = _value_and_grad(single, X)
+    ls = launches()
+    check(lb == (1, 1) and ls == (C, C), f"batched {label}: launches "
+          f"{lb} batched, {ls} single, expected (1, 1) and ({C}, {C})")
+    within(f"batched-{label} nlml", fb.cpu().numpy(), fs.cpu().numpy(),
+           BATCH_TOL["nlml"])
+    within(f"batched-{label} grad", gb.cpu().numpy(), gs.cpu().numpy(),
+           BATCH_TOL["grad"])
+    tb, ts = [], []
+    for _ in range(7):
+        tb.append(host_ms(lambda: _value_and_grad(batched, X)))
+        ts.append(host_ms(lambda: _value_and_grad(single, X)))
+    rec = {"batched_ms": float(np.median(tb)),
+           "single_ms": float(np.median(ts)),
+           "syncs_batched": count_syncs(lambda: _value_and_grad(batched, X)),
+           "syncs_single": count_syncs(lambda: _value_and_grad(single, X))}
+    print(f"inference batched-{label}: {C} points, one batched evaluation "
+          f"(value and gradient, host clock with sync, median of 7) "
+          f"{rec['batched_ms']:.3f} ms in 1 + 1 launches, {C} single ones "
+          f"in turn {rec['single_ms']:.3f} ms in {C} + {C} "
+          f"({rec['single_ms'] / rec['batched_ms']:.2f}x); host syncs "
+          f"{rec['syncs_batched']} against {rec['syncs_single']}")
+    return rec
+
+
+def counted_evaluations(fn):
+    """(fn's result, batched evaluations): calls of nlog_ml_batched made
+    through gpz_tpu_torch.inference.api while fn runs."""
+    api = importlib.import_module("gpz_tpu_torch.inference.api")
+    real = api.nlog_ml_batched
+    calls = [0]
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return real(*args, **kw)
+
+    api.nlog_ml_batched = counted
+    try:
+        return fn(), calls[0]
+    finally:
+        api.nlog_ml_batched = real
+
+
+def run_sampler(label, model, X, Y, psi, omega, tr, **kw) -> tuple:
+    """(c), (d): sample_posterior on the card; (samples, info, evaluations,
+    seconds, launches), the launches checked against the evaluations."""
+    import torch
+    from gpz_tpu_torch.inference import sample_posterior
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (samples, info), evals = counted_evaluations(lambda: sample_posterior(
+        model, X, Y, omega=omega, training=tr, psi=psi,
+        num_chains=INF_CHAINS, seed=17, **kw))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = launches()
+    S = samples.shape[1]
+    draws = samples.cpu().numpy()
+    check(samples.shape == (INF_CHAINS, S, samples.shape[2])
+          and np.isfinite(draws).all(), f"{label}: draws not finite of "
+          "the expected shape")
+    accept = info["accept_rate"].cpu().numpy()
+    check(bool((accept > 0).all()), f"{label}: acceptance {accept}")
+    check(got == (evals, evals), f"{label}: launches {got}, the target was "
+          f"evaluated {evals} times")
+    ess = effective_sizes(draws)
+    rhat = info["rhat"].cpu().numpy()
+    print(f"inference {label}: {INF_CHAINS} chains x {S} draws of p = "
+          f"{samples.shape[2]} in {secs:.3f} s, {evals} batched evaluations "
+          f"({secs / evals * 1e3:.3f} ms each; launches fwd/bwd {got}); "
+          f"acceptance {np.round(accept, 3).tolist()}, step size "
+          f"{np.asarray(info['step_size'].cpu()).round(6).tolist()}, "
+          f"split-Rhat max {rhat.max():.3f} median {np.median(rhat):.3f}; "
+          f"effective draws min {ess.min():.1f} median {np.median(ess):.1f} "
+          f"of {INF_CHAINS * S}: {secs / ess.min():.3f} s per effective "
+          f"draw at the minimum, {secs / np.median(ess):.3f} at the median")
+    return samples, info, evals, secs, got
+
+
+def phase_inference(model64, mags, errs, z, test_rows, data70, flat70,
+                    unravel70, cfg70) -> tuple:
+    """17. Posterior inference at the trained photo-z point; ((fwd, bwd)
+    launches of its main path, (c) to (f), and the kernel pair's records at
+    every shape that path launched, forward and backward)."""
+    import dataclasses
+    import torch
+    from gpz_tpu_torch import datautils
+    from gpz_tpu_torch.data import synthetic_sdss
+    from gpz_tpu_torch.inference import advi_fit, predictive_draws
+    from gpz_tpu_torch.inference.mcmc import _hmc_step, _value_and_grad
+    from gpz_tpu_torch.inference.nuts import _nuts_step
+    from gpz_tpu_torch.inference.api import posterior_target
+    import gpz_tpu_torch
+    from make_torch_port_golden import (
+        HMC_LEAPFROG, INFERENCE_TOL, JITTER, NUTS_DEPTH, PRIOR_SCALE,
+        STEP_EPS, inference_problem, jittered_points, load_golden_inference,
+    )
+
+    t_phase = time.perf_counter()
+    f64 = torch.float64
+    dev = model64.best.params.P.device
+    X, Y, psi, omega, tr = inference_problem(
+        synthetic_sdss, datautils.split, datautils.get_omega)
+    check(int(tr.sum()) == 4000, f"inference: {int(tr.sum())} training rows")
+    # sample_posterior's own target, which (b) holds against JAX
+    logp, flat, unravel, data, complete = posterior_target(
+        model64, X, Y, omega=omega, training=tr, psi=psi,
+        prior_scale=PRIOR_SCALE)
+    check(complete, "inference: the training rows are not taken as complete")
+    nlml_b, nlml_s = single_and_batched(
+        unravel, data, dataclasses.replace(model64.cfg, dtype="float64"))
+    p = flat.numel()
+    rng = np.random.default_rng(17)
+
+    def jitter(center):
+        return center[None] + JITTER * torch.as_tensor(
+            rng.standard_normal((INF_CHAINS, center.numel())), device=dev)
+
+    # (a) batched against single, here and at 70,000 rows
+    rec_a = compare_batched(f"{tr.sum()}x{model64.cfg.m}", nlml_b, nlml_s,
+                            jitter(flat))
+    b70, s70 = single_and_batched(unravel70, data70, cfg70)
+    rec_70 = compare_batched(f"{data70.n}x{cfg70.m}", b70, s70,
+                             jitter(flat70))
+
+    # (b) against JAX: log posterior, one HMC and one NUTS transition, ADVI
+    gold = load_golden_inference()
+    within("golden flat", flat.cpu().numpy(), gold["flat"],
+           INFERENCE_TOL["flat"])
+    pts = np.concatenate([gold["flat"][None], jittered_points(gold["flat"])])
+    lp, g = _value_and_grad(logp, torch.as_tensor(pts, device=dev))
+    within("golden logp", lp.cpu().numpy(), gold["logp"],
+           INFERENCE_TOL["logp"])
+    within("golden grad", g.cpu().numpy(), gold["grad"],
+           INFERENCE_TOL["grad"])
+    def dv(name):
+        return torch.as_tensor(gold[name], device=dev)
+
+    x0 = flat[None].expand(2, p).clone()
+    l0, g0 = _value_and_grad(logp, x0)
+    eps = torch.full((2,), STEP_EPS, dtype=f64, device=dev)
+    ones = torch.ones((2, p), dtype=f64, device=dev)
+    hmc_draws = [dv(f"hmc.{k}") for k in ("z", "steps", "u")]
+    nuts_draws = [dv(f"nuts.{k}") for k in ("z", "go_right", "leaf_u",
+                                            "merge_u")]
+    reset_launches()
+    hmc = _hmc_step(logp, x0, l0, g0, eps, ones, *hmc_draws)
+    check(launches() == (int(gold["hmc.steps"].max()),) * 2,
+          f"golden hmc: launches {launches()}")
+    for name, got in zip(("x", "logp", "accept_prob"), (hmc[0], hmc[1],
+                                                        hmc[3])):
+        within(f"golden hmc.{name}", got.cpu().numpy(), gold[f"hmc.{name}"],
+               INFERENCE_TOL[f"hmc.{name}"])
+    reset_launches()
+    nuts = _nuts_step(logp, x0, l0, g0, eps, ones, *nuts_draws, NUTS_DEPTH)
+    nuts_l = launches()
+    for name, got in zip(("x", "logp", "accept_stat"), (nuts[0], nuts[1],
+                                                        nuts[3])):
+        within(f"golden nuts.{name}", got.cpu().numpy(),
+               gold[f"nuts.{name}"], INFERENCE_TOL[f"nuts.{name}"])
+    check(np.array_equal(nuts[4].cpu().numpy(), gold["nuts.depth"])
+          and np.array_equal(nuts[5].cpu().numpy(), gold["nuts.diverged"]),
+          f"golden nuts: depth {nuts[4].tolist()} diverged "
+          f"{nuts[5].tolist()}, JAX {gold['nuts.depth'].tolist()} "
+          f"{gold['nuts.diverged'].tolist()}")
+    check(nuts_l[0] == nuts_l[1] <= 2**NUTS_DEPTH - 1,
+          f"golden nuts: launches {nuts_l}")
+    mu, rho, elbos = advi_fit(logp, flat, num_steps=len(gold["advi.elbos"]),
+                              num_mc=gold["advi.eps"].shape[1],
+                              eps=dv("advi.eps"))
+    for name, got in (("mu", mu), ("rho", rho), ("elbos", elbos)):
+        within(f"golden advi.{name}", got.cpu().numpy(), gold[f"advi.{name}"],
+               INFERENCE_TOL[f"advi.{name}"])
+    # host syncs of the two transitions: two per evaluation (the jitter
+    # ladders' reads), plus at most one per HMC transition and one per leaf
+    per_eval = rec_a["syncs_batched"]
+    hmc_syncs = count_syncs(lambda: _hmc_step(
+        logp, x0, l0, g0, eps, ones, *hmc_draws))
+    nuts_syncs = count_syncs(lambda: _nuts_step(
+        logp, x0, l0, g0, eps, ones, *nuts_draws, NUTS_DEPTH))
+    n_hmc = int(gold["hmc.steps"].max())
+    print(f"inference golden: HMC transition of {HMC_LEAPFROG} steps at "
+          f"most, accept_prob {hmc[3].tolist()} (JAX "
+          f"{gold['hmc.accept_prob'].tolist()}); NUTS depth "
+          f"{nuts[4].tolist()}, {nuts_l[0]} leaves in lockstep, "
+          f"accept_stat {nuts[3].tolist()}; host syncs: HMC {hmc_syncs} for "
+          f"{n_hmc} evaluations, NUTS {nuts_syncs} for {nuts_l[0]} leaves "
+          f"({per_eval} per evaluation)")
+    check(hmc_syncs <= n_hmc * per_eval + 1
+          and nuts_syncs <= nuts_l[0] * (per_eval + 1),
+          "inference: the samplers read the host more than once per HMC "
+          "transition or NUTS leaf beyond the evaluations' own reads")
+
+    # (c) to (f), the main path, each part counted from 0, with the kernel
+    # pair's calls recorded for (g)
+    map_mu = gpz_tpu_torch.predict(mags[test_rows], model64,
+                                   psi=errs[test_rows] ** 2).mu
+    fwd_sites, bwd_sites = {}, {}
+    with pair_recorded(fwd_sites, bwd_sites):
+        hmc_s, hmc_info, hmc_evals, hmc_secs, hmc_l = run_sampler(
+            "hmc", model64, X, Y, psi, omega, tr, sampler="hmc",
+            num_warmup=HMC_WARMUP, num_samples=HMC_DRAWS)
+        _, nuts_info, nuts_evals, nuts_secs, nuts_l = run_sampler(
+            "nuts", model64, X, Y, psi, omega, tr, sampler="nuts",
+            num_warmup=NUTS_WARMUP, num_samples=NUTS_DRAWS,
+            max_depth=NUTS_MAX_DEPTH)
+    transitions = NUTS_WARMUP + NUTS_DRAWS
+    print(f"inference nuts: mean tree depth "
+          f"{np.round(nuts_info['mean_tree_depth'].cpu().numpy(), 3).tolist()}"
+          f" (max {NUTS_MAX_DEPTH}), divergences "
+          f"{nuts_info['divergences'].cpu().numpy().tolist()}, "
+          f"{(nuts_evals - 1) / transitions:.2f} leaves per transition "
+          f"(lockstep batch), {nuts_secs / transitions:.3f} s per transition")
+
+    # (e) predictive draws on the test rows
+    thin = max(1, INF_CHAINS * HMC_DRAWS // PREDICTIVE_DRAWS)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with pair_recorded(fwd_sites, bwd_sites):
+        mus, mean_mu, std_mu = predictive_draws(
+            model64, hmc_s, hmc_info, mags[test_rows],
+            psi_new=errs[test_rows] ** 2, thin=thin)
+    pred_secs = time.perf_counter() - t0
+    pred_l = launches()
+    n_draws = mus.shape[0]
+    check(mus.shape == (n_draws, len(test_rows), 1) and np.isfinite(mus).all()
+          and (std_mu >= 0).all(), "predictive: draws not finite of the "
+          "expected shape, or a negative spread")
+    check(pred_l == (2 * n_draws, 0), f"predictive: launches {pred_l}, "
+          f"expected (2 x {n_draws}, 0)")
+    gap = float(np.max(np.abs(mean_mu - map_mu)))
+    rmse = float(np.sqrt(np.mean((mean_mu[:, 0] - z[test_rows]) ** 2)))
+    print(f"inference predictive: {n_draws} draws (thin {thin}) on "
+          f"{len(test_rows)} test rows in {pred_secs:.3f} s, launches "
+          f"fwd/bwd {pred_l}; spread of the mean median "
+          f"{np.median(std_mu):.3e} max {std_mu.max():.3e}; largest |mean - "
+          f"MAP predict mu| {gap:.3e} (gpz_tpu's test bound 1.0); test RMSE "
+          f"of the mean {rmse:.6f}")
+    check(gap < 1.0, "predictive: the posterior-predictive mean is 1.0 or "
+          "more from the MAP prediction")
+
+    # (f) ADVI
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with pair_recorded(fwd_sites, bwd_sites):
+        mu, rho, elbos = advi_fit(logp, flat, gen, num_steps=ADVI_FIT_STEPS,
+                                  num_mc=ADVI_FIT_MC)
+    torch.cuda.synchronize()
+    advi_secs = time.perf_counter() - t0
+    advi_l = launches()
+    el = elbos.cpu().numpy()
+    print(f"inference advi: {ADVI_FIT_STEPS} steps of {ADVI_FIT_MC} draws "
+          f"({ADVI_FIT_MC} x {model64.cfg.m} bases per launch) in "
+          f"{advi_secs:.3f} s, launches fwd/bwd {advi_l}; ELBO mean of the "
+          f"first 50 {el[:50].mean():.3f}, of the last 50 "
+          f"{el[-50:].mean():.3f}, scale median "
+          f"{float(rho.exp().median()):.3e}")
+    check(np.isfinite(el).all() and el[-50:].mean() > el[:50].mean(),
+          "advi: ELBO not finite or not higher over the last 50 steps")
+    check(advi_l == (ADVI_FIT_STEPS, ADVI_FIT_STEPS), "advi: launches differ "
+          "from one pair per step")
+    got = tuple(sum(c) for c in zip(hmc_l, nuts_l, pred_l, advi_l))
+
+    # (g) the kernel pair against its plain versions at every shape the main
+    # path launched, on the arguments of its first launch there (the
+    # backward on the cotangent the path gave it)
+    m, n_tr = model64.cfg.m, int(tr.sum())
+    chains = hmc_evals + nuts_evals
+    want_f = {(n_tr, INF_CHAINS * m): chains, (n_tr, m): n_draws,
+              (len(test_rows), m): n_draws,
+              (n_tr, ADVI_FIT_MC * m): ADVI_FIT_STEPS}
+    want_b = {(n_tr, INF_CHAINS * m): chains,
+              (n_tr, ADVI_FIT_MC * m): ADVI_FIT_STEPS}
+    check(site_counts(fwd_sites) == want_f
+          and site_counts(bwd_sites) == want_b,
+          f"inference: the main path launched {site_counts(fwd_sites)} "
+          f"forward and {site_counts(bwd_sites)} backward, expected {want_f} "
+          f"and {want_b}")
+    fwd_recs = compare_sites("inference", fwd_sites, "phase-17 main path",
+                             key="launches")
+    bwd_recs = compare_bwd_sites("inference", bwd_sites, "phase-17 main path")
+    del fwd_sites, bwd_sites
+    print(f"inference: phase in {time.perf_counter() - t_phase:.1f} s; main "
+          f"path (c)-(f) launches fwd/bwd {got}; batched evaluation "
+          f"{rec_a['batched_ms']:.3f} ms vs {rec_a['single_ms']:.3f} ms in "
+          f"turn at 4,000 rows, {rec_70['batched_ms']:.3f} vs "
+          f"{rec_70['single_ms']:.3f} ms at {data70.n}")
+    return got, fwd_recs, bwd_recs
 
 
 def main(argv) -> int:
@@ -1572,6 +2038,8 @@ def main(argv) -> int:
                                                trace["f"])
     new_paths["derivcheck"] = phase_derivcheck(model, X, Y, psi, tr)
     new_paths["bench"] = phase_bench(smi)
+    new_paths["inference"], inf_fwd, inf_bwd = phase_inference(
+        model64, mags, errs, z, rows, data_tr, flat_t, unravel_t, fitted.cfg)
     new_fwd = sum(f for f, _ in new_paths.values())
     new_bwd = sum(b for _, b in new_paths.values())
 
@@ -1585,8 +2053,9 @@ def main(argv) -> int:
                              "missing_serve": missing_launches,
                              **{k_: f for k_, (f, _) in new_paths.items()}},
         "max_abs_err": max(c["max_abs_err"] for c in (
-            fwd_big, *serve_cases.values(), *mix_cases.values())),
-        "sites": {**serve_cases, **mix_cases},
+            fwd_big, *serve_cases.values(), *mix_cases.values(),
+            *inf_fwd.values())),
+        "sites": {**serve_cases, **mix_cases, **inf_fwd},
         "shape": [n_, m_, d_, "float64"],
         "ms": fwd_big["ms"], "plain_ms": fwd_big["plain_ms"],
         **{k_: v for k_, v in bound("fwd", n_, m_, d_, "float64").items()
@@ -1599,7 +2068,9 @@ def main(argv) -> int:
         "launches_by_path": {"serve": 0, "train": path_bwd,
                              "missing_serve": 0,
                              **{k_: b for k_, (_, b) in new_paths.items()}},
-        "max_abs_err": max(bwd_errs),
+        "max_abs_err": max(bwd_errs + [c["max_abs_err"]
+                                       for c in inf_bwd.values()]),
+        "sites": inf_bwd,
         "shape": [n_, m_, d_, "float64"],
         **bwd_rec["70000x100"],
         **{k_: v for k_, v in bound("bwd", n_, m_, d_, "float64").items()

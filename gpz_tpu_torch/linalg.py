@@ -22,30 +22,43 @@ def _cholesky_or_nan(A: torch.Tensor) -> torch.Tensor:
     return torch.where((info != 0)[..., None, None], failed, L)
 
 
-def safe_cholesky(A: torch.Tensor) -> torch.Tensor:
+def safe_cholesky(A: torch.Tensor, batch_dims: int = 0) -> torch.Tensor:
     """Cholesky of PSD `A` (batched, [..., n, n]) with escalating jitter.
 
+    `batch_dims` leading axes index independent sets (the parameter sets of
+    a batched evaluation): each set climbs the ladder on its own, as each
+    chain does under gpz_tpu's vmap, and a set whose factor is finite keeps
+    its zero-jitter factor. With 0 the whole tensor is one set and takes
+    one level.
+
     One factorization at zero jitter is the common case, and its finiteness
-    check is the call's one host sync. If any factor is non-finite, every
-    level of the jitter ladder is factored on a detached copy, one more sync
-    reads which levels are finite, and one differentiable factorization is
-    taken at the first such level. If every level fails, NaNs propagate (ref
+    check is the call's one host sync. If a set's factor is not finite,
+    every level of the ladder is factored on a detached copy, each set takes
+    the first level at which all its factors are finite (the last level if
+    none is), and one differentiable factorization is taken at those levels,
+    with no further host read. If every level fails, NaNs propagate (ref
     minFunc.m:963 isLegal/Armijo-fallback role).
     """
     L0 = _cholesky_or_nan(A)
-    if bool(torch.isfinite(L0).all()):
+    lead = A.shape[:batch_dims]
+    ok0 = torch.isfinite(L0).reshape(*lead, -1).all(-1)
+    if bool(ok0.all()):
         return L0
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
     with torch.no_grad():
         As = A.detach()
         scale = As.diagonal(dim1=-2, dim2=-1).abs().mean(-1)
         scale = torch.clamp(scale, min=1.0)[..., None, None]
-        finite = torch.stack([
-            torch.isfinite(_cholesky_or_nan(As + jitter * scale * eye)).all()
-            for jitter in _JITTERS[1:]
-        ]).tolist()
-    level = finite.index(True) if True in finite else len(finite) - 1
-    return _cholesky_or_nan(A + _JITTERS[1 + level] * scale * eye)
+        jitter = torch.full(lead, _JITTERS[-1], dtype=A.dtype, device=A.device)
+        for level in reversed(_JITTERS[1:]):
+            ok = torch.isfinite(_cholesky_or_nan(As + level * scale * eye))
+            jitter = torch.where(ok.reshape(*lead, -1).all(-1), level, jitter)
+        # a set that factored at zero jitter is factored again at zero:
+        # selecting L0 instead would send NaN cotangents from the failed
+        # sets' L0 into the gradient
+        jitter = torch.where(ok0, 0.0, jitter)
+        jitter = jitter.reshape(lead + (1,) * (A.dim() - batch_dims))
+    return _cholesky_or_nan(A + jitter * scale * eye)
 
 
 def chol_logdet(L: torch.Tensor) -> torch.Tensor:
@@ -65,17 +78,20 @@ def solve_psd(A: torch.Tensor, B: torch.Tensor):
     return chol_solve(L, B), chol_logdet(L)
 
 
-def solve_w_logdet(SIGMA: torch.Tensor, rhs: torch.Tensor):
+def solve_w_logdet(SIGMA: torch.Tensor, rhs: torch.Tensor,
+                   batch_dims: int = 0):
     """(w, logdet) for the batched PSD system SIGMA_k w_k = rhs_k.
 
-    SIGMA (k, m, m); rhs (m, k). Returns w (m, k), logdet (k,).
-    Differentiable by autograd through the factorization and the triangular
-    solves: float64 products are exact on the CPU and on CUDA, so gpz_tpu's
-    hand-written cotangents for this function have no counterpart here.
+    SIGMA (..., k, m, m); rhs (..., m, k). Returns w (..., m, k), logdet
+    (..., k). `batch_dims` leading axes are independent sets for the jitter
+    ladder (`safe_cholesky`). Differentiable by autograd through the
+    factorization and the triangular solves: float64 products are exact on
+    the CPU and on CUDA, so gpz_tpu's hand-written cotangents for this
+    function have no counterpart here.
     """
-    L = safe_cholesky(SIGMA)
-    w = chol_solve(L, rhs.transpose(0, 1)[..., None])[..., 0]   # (k, m)
-    return w.transpose(0, 1), chol_logdet(L)
+    L = safe_cholesky(SIGMA, batch_dims)
+    w = chol_solve(L, rhs.transpose(-1, -2)[..., None])[..., 0]  # (..., k, m)
+    return w.transpose(-1, -2), chol_logdet(L)
 
 
 def inv_logdet_psd(A: torch.Tensor):

@@ -76,29 +76,37 @@ def solve_dtype(cfg: ModelConfig) -> torch.dtype:
 def _gram_reductions(PHI, ob, Y, sdt, r):
     """The three n-reductions of the objective (Gram A, rhs, sum ob*y^2) in
     the solve dtype (ref GPz.m:63-75): the sums that a row-sharded run reduces
-    across its shards through `r`."""
+    across its shards through `r`. PHI (..., n, m) and ob (..., n, k), with
+    any leading axes of parameter sets."""
     PHIs = PHI.to(sdt)
-    W = PHIs[:, None, :] * ob.to(sdt)[:, :, None]               # (n, k, m)
-    A = r(W.permute(1, 2, 0) @ PHIs)                            # (k, m, m)
-    rhs = r(PHIs.transpose(0, 1) @ (ob * Y).to(sdt))            # (m, k)
-    obyy = r(torch.sum((ob * Y * Y).to(sdt), dim=0))            # (k,)
+    W = PHIs[..., None, :] * ob.to(sdt)[..., None]              # (..., n, k, m)
+    # one set's (n, m) operand stays 2-D, so that matmul folds (k, m, n) @
+    # (n, m) into one product (a broadcast batch of one rounds differently)
+    right = PHIs if PHIs.dim() == 2 else PHIs[..., None, :, :]
+    A = r(W.movedim(-3, -1) @ right)                            # (..., k, m, m)
+    rhs = r(PHIs.transpose(-1, -2) @ (ob * Y).to(sdt))          # (..., m, k)
+    obyy = r(torch.sum((ob * Y * Y).to(sdt), dim=-2))           # (..., k)
     return A, rhs, obyy
 
 
 def _gram_terms(params: GPzParams, cfg: ModelConfig, data: Dataset,
-                complete: bool, reducer: Callable = _identity):
-    """Shared forward computation: PHI, noise, Gram, posterior weights."""
+                complete: bool, reducer: Callable = _identity,
+                batch_dims: int = 0):
+    """Shared forward computation: PHI, noise, Gram, posterior weights.
+    `batch_dims` leading axes of `params` are independent parameter sets
+    (`design_matrix`): every result gains them, and each set climbs the
+    jitter ladder of SIGMA on its own."""
     sdt = solve_dtype(cfg)
     PHI, _, ln_beta = design_matrix(params, cfg, data.X, data.mask, data.psi,
                                     complete)
-    beta = torch.exp(-ln_beta)                           # (n, k)
-    ob = data.omega[:, None] * beta                      # (n, k)
-    alpha = torch.exp(params.ln_alpha.to(sdt))           # (m, k)
+    beta = torch.exp(-ln_beta)                           # (..., n, k)
+    ob = data.omega[:, None] * beta                      # (..., n, k)
+    alpha = torch.exp(params.ln_alpha.to(sdt))           # (..., m, k)
 
     # SIGMA_k = PHI^T diag(ob_k) PHI + diag(alpha_k)   (ref GPz.m:63-65)
     A, rhs, obyy = _gram_reductions(PHI, ob, data.Y, sdt, reducer)
-    SIGMA = A + torch.diag_embed(alpha.transpose(0, 1))  # (k, m, m)
-    w, logdet = solve_w_logdet(SIGMA, rhs)               # (m, k), (k,)
+    SIGMA = A + torch.diag_embed(alpha.transpose(-1, -2))   # (..., k, m, m)
+    w, logdet = solve_w_logdet(SIGMA, rhs, batch_dims)   # (..., m, k), (..., k)
     return PHI, ln_beta, beta, ob, alpha, SIGMA, logdet, w, rhs, obyy
 
 
@@ -123,6 +131,55 @@ def _fit_metrics(PHI, w, ln_beta, beta, data, n_eff, k, sdt, r):
     return rmse, ll
 
 
+def _evidence(params, cfg, w, rhs, alpha, obyy, logdet, lnb_omega, sdt):
+    """Per-output log evidence (ref GPz.m:81-82, the prior on v :103) from
+    the reduced quantities: w, rhs, alpha (..., m, k); obyy, logdet and
+    lnb_omega = sum_i omega_i ln_beta_ik (..., k).
+
+    The data-fit quadratic by the exact normal-equations identity: with
+    A = SIGMA - diag(alpha) and SIGMA w = rhs,
+      sum_i ob (phi_i'w - y_i)^2 = w'Aw - 2 w'rhs + sum_i ob y^2
+                                 = sum_i ob y^2 - w'rhs - sum alpha w^2,
+    so the whole term is built from the m-sized reductions plus the
+    n-scalar obyy. The identity holds for every theta, so autograd through
+    this form gives the gradient of the computed function exactly.
+    """
+    wrhs = torch.sum(w * rhs, dim=-2)
+    aw2 = torch.sum(alpha * w**2, dim=-2)
+    quad = obyy - wrhs - aw2
+    log_ml = (
+        -0.5 * quad
+        - 0.5 * aw2
+        + 0.5 * torch.sum(params.ln_alpha.to(sdt), dim=-2)
+        - 0.5 * logdet
+        - 0.5 * lnb_omega
+    )
+    if params.heteroscedastic:
+        tau = torch.exp(params.ln_tau.to(sdt))
+        log_ml = log_ml + (
+            -0.5 * torch.sum(params.v.to(sdt)**2 * tau, dim=-2)
+            + 0.5 * torch.sum(params.ln_tau.to(sdt), dim=-2)
+            - 0.5 * cfg.m * _LN2PI
+        )
+    return log_ml
+
+
+def _neg_log_ml(params, data, cfg, n_eff, complete, r, batch_dims):
+    """(nlml (...), the _gram_terms) of one parameter set, or of a batch of
+    them along `batch_dims` leading axes; `n_eff` a tensor or a number."""
+    sdt = solve_dtype(cfg)
+    k = cfg.k
+    terms = _gram_terms(params, cfg, data, complete, r, batch_dims)
+    _, ln_beta, _, _, alpha, _, logdet, w, rhs, obyy = terms
+    log_ml = _evidence(
+        params, cfg, w, rhs, alpha, obyy, logdet,
+        r(torch.sum((ln_beta * data.omega[:, None]).to(sdt), dim=-2)), sdt)
+    total = torch.sum(log_ml, dim=-1) - 0.5 * _LN2PI * k * r(
+        torch.sum(data.omega.to(sdt))
+    )
+    return -total / (n_eff * k), terms
+
+
 def nlog_ml(
     params: GPzParams,
     data: Dataset,
@@ -141,50 +198,33 @@ def nlog_ml(
     """
     sdt = solve_dtype(cfg)
     n_eff = _n_eff(n_eff, data, sdt)
-    r = reducer
-    k = cfg.k
-    PHI, ln_beta, beta, ob, alpha, _, logdet, w, rhs, obyy = _gram_terms(
-        params, cfg, data, complete, r
-    )
-    # The data-fit quadratic by the exact normal-equations identity: with
-    # A = SIGMA - diag(alpha) and SIGMA w = rhs,
-    #   sum_i ob (phi_i'w - y_i)^2 = w'Aw - 2 w'rhs + sum_i ob y^2
-    #                              = sum_i ob y^2 - w'rhs - sum alpha w^2,
-    # so the whole term is built from the m-sized reductions plus the
-    # n-scalar obyy. The identity holds for every theta, so autograd through
-    # this form gives the gradient of the computed function exactly.
-    wrhs = torch.sum(w * rhs, dim=0)                             # (k,)
-    aw2 = torch.sum(alpha * w**2, dim=0)                         # (k,)
-    quad = obyy - wrhs - aw2
-
-    # per-k evidence terms (ref GPz.m:81-82)
-    log_ml = (
-        -0.5 * quad
-        - 0.5 * aw2
-        + 0.5 * torch.sum(params.ln_alpha.to(sdt), dim=0)
-        - 0.5 * logdet
-        - 0.5 * r(torch.sum((ln_beta * data.omega[:, None]).to(sdt), dim=0))
-    )
-
-    if params.heteroscedastic:
-        tau = torch.exp(params.ln_tau.to(sdt))
-        # prior on v (ref GPz.m:103)
-        log_ml = log_ml + (
-            -0.5 * torch.sum(params.v.to(sdt)**2 * tau, dim=0)
-            + 0.5 * torch.sum(params.ln_tau.to(sdt), dim=0)
-            - 0.5 * cfg.m * _LN2PI
-        )
-
-    total = torch.sum(log_ml) - 0.5 * _LN2PI * k * r(
-        torch.sum(data.omega.to(sdt))
-    )
-    nlml = -total / (n_eff * k)
+    nlml, (PHI, ln_beta, beta, _, _, _, _, w, _, _) = _neg_log_ml(
+        params, data, cfg, n_eff, complete, reducer, 0)
 
     # train metrics (ref GPz.m:236-237), explicit instead of globals
     with torch.no_grad():
         train_rmse, train_ll = _fit_metrics(
-            PHI, w, ln_beta, beta, data, n_eff, k, sdt, r)
+            PHI, w, ln_beta, beta, data, n_eff, cfg.k, sdt, reducer)
     return nlml, Aux(w=w.detach(), train_rmse=train_rmse, train_ll=train_ll)
+
+
+def nlog_ml_batched(flat: torch.Tensor, unravel: Callable, data: Dataset,
+                    cfg: ModelConfig, complete: bool = False) -> torch.Tensor:
+    """nlog_ml of B parameter sets at once: flat (B, p), a flat parameter
+    vector per row (`GPzParams.flatten`'s layout, read by `unravel`), gives
+    the (B,) nlml on the same data, what vmapping gpz_tpu's nlog_ml over
+    flat vectors gives.
+
+    The design matrix joins the B sets' bases into one (n, B * m) call, so
+    on complete rows with full psi the kernel pair launches once forward and
+    once backward whatever B is. Everything after it is nlog_ml's own path
+    with a leading axis B: ln_beta, the three reductions, the (B, k, m, m)
+    factorization, whose jitter ladder each set climbs on its own, and the
+    evidence terms. The sets share nothing, so autograd's gradient of
+    `nlml.sum()` in flat is each row's own gradient.
+    """
+    return _neg_log_ml(unravel(flat), data, cfg, data.n, complete,
+                       _identity, 1)[0]
 
 
 def posterior(

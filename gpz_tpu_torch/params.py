@@ -58,18 +58,21 @@ class GPzParams:
         concatenated in the order of FIELDS, which is the leaf order of
         gpz_tpu's ravel_pytree, so a flat vector means the same parameters
         in both packages. unravel(flat) gives GPzParams of views into flat
-        (autograd flows through them)."""
+        (autograd flows through them); unravel of a (B, p) batch of such
+        vectors gives B parameter sets, every field with a leading axis B."""
         present = [(f, t) for f, t in self._items() if t is not None]
         shapes = [(f, tuple(t.shape), t.numel()) for f, t in present]
         flat = torch.cat([t.reshape(-1) for _, t in present])
 
         def unravel(vec: torch.Tensor) -> "GPzParams":
-            if vec.shape != flat.shape:
+            if vec.dim() not in (1, 2) or vec.shape[-1] != flat.shape[0]:
                 raise ValueError(f"expected a vector of {flat.shape[0]} "
-                                 f"values, got {tuple(vec.shape)}")
+                                 f"values or a batch of them, got "
+                                 f"{tuple(vec.shape)}")
+            lead = vec.shape[:-1]
             out, at = {}, 0
             for f, shape, size in shapes:
-                out[f] = vec[at:at + size].reshape(shape)
+                out[f] = vec[..., at:at + size].reshape(*lead, *shape)
                 at += size
             return GPzParams(**out)
 

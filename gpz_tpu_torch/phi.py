@@ -66,16 +66,30 @@ def log_phi(
     complete: hint that mask is all-True (the full-covariance family then
               skips the masked restrictions; the diagonal family is
               mask-native)
+
+    B parameter sets, each field with a leading axis B (as `unravel` gives
+    them for a (B, p) batch of flat vectors), give (lnPHI, lnN) of (B, n, m):
+    the sets' bases are joined into one axis of B * m bases, so the kernel
+    pair runs once for all of them, and the full family's iSigma climbs the
+    jitter ladder per set.
     """
+    lead = params.P.shape[:-2]
+    G = params.gamma.expand(*lead, *cfg.gamma_expanded_shape)
     if cfg.full_cov:
-        return _log_phi_full(params, cfg, X, mask, psi, complete)
-    return _log_phi_diag(params, cfg, X, mask, psi)
+        ln_phi, ln_n = _log_phi_full(G, params.P, X, mask, psi, complete,
+                                     len(lead))
+    else:
+        ln_phi, ln_n = _log_phi_diag(G.reshape(-1, cfg.d),
+                                     params.P.reshape(-1, cfg.d), X, mask,
+                                     psi)
+    if lead:
+        ln_phi, ln_n = (t.reshape(X.shape[0], *lead, cfg.m).movedim(0, -2)
+                        for t in (ln_phi, ln_n))
+    return ln_phi, ln_n
 
 
-def _log_phi_diag(params, cfg, X, mask, psi):
-    G = params.expand_gamma(cfg)             # (m, d)
+def _log_phi_diag(G, P, X, mask, psi):
     Sigma = G**-2                            # per-dim variances (getPHI.m:93)
-    P = params.P
     fmask = mask.to(X.dtype)
     n_obs = torch.sum(fmask, dim=1)          # (n,)
     n_mis = X.shape[1] - n_obs
@@ -136,13 +150,16 @@ def _masked_block(Xb, maskb, psib, P, Sigma):
     return ln_phi, ln_n
 
 
-def _log_phi_full(params, cfg, X, mask, psi, complete):
-    G = params.expand_gamma(cfg)             # (m, d, d)
-    P = params.P
+def _log_phi_full(G, P, X, mask, psi, complete, batch_dims=0):
+    """G (*sets, m, d, d) and P (*sets, m, d), with `batch_dims` leading
+    axes of parameter sets whose bases are joined into one axis after the
+    factorization of iSigma."""
     n, d = X.shape
-    m = cfg.m
     iSig = G.transpose(-1, -2) @ G           # Gamma^T Gamma (getPHI.m:73)
-    L_iSig = safe_cholesky(iSig)
+    L_iSig = safe_cholesky(iSig, batch_dims)
+    G, P, L_iSig = G.reshape(-1, d, d), P.reshape(-1, d), L_iSig.reshape(
+        -1, d, d)
+    m = P.shape[0]
     logdet_Sigma = -chol_logdet(L_iSig)      # (m,)
 
     if complete and psi is None:
@@ -190,10 +207,12 @@ def design_matrix(
     """(PHI, lnN, ln_beta_i): activations, log densities, log noise variance.
 
     ln_beta_i = b + PHI @ v when heteroscedastic (ref getPHI.m:117-125).
+    B parameter sets with a leading axis B give each a leading axis B
+    (`log_phi`).
     """
     ln_phi, ln_n = log_phi(params, cfg, X, mask, psi, complete)
     PHI = torch.exp(ln_phi)
-    ln_beta_i = params.b[None, :].expand(X.shape[0], cfg.k)
+    ln_beta_i = params.b[..., None, :].expand(*ln_phi.shape[:-1], cfg.k)
     if params.heteroscedastic:
         ln_beta_i = ln_beta_i + PHI @ params.v
     return PHI, ln_n, ln_beta_i

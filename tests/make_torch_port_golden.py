@@ -1,9 +1,9 @@
 """Regenerate the golden files that hold gpz_tpu_torch against gpz_tpu where
 JAX is absent (chip_smoke.py on the GPU).
 
-    JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py [photoz] [train] [missing]
+    JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py [photoz] [train] [missing] [inference]
 
-With no argument all three files are written.
+With no argument all four files are written.
 
 tests/data/torch_port_golden_photoz.npz holds gpz_tpu.predict's outputs (mu, sigma, nu, beta_i, gamma) for
 the first 256 test rows of the photo-z parity data
@@ -47,6 +47,36 @@ of the rows; the first 25% lose band 0 (u), the next 10% band 4 (z), the next
   vd.init.flat, vd.trace.f, vd.trace.fevals   VD m=100 with psi (n, d) and
                             get_omega(z, "balanced") weights on the same
                             rows: init, then gpz_tpu.train(max_iter=TRACE_ITERS)
+
+tests/data/torch_port_golden_inference.npz holds posterior inference over the
+hyperparameters of the trained checkpoint cast to float64, on its own 4,000
+training rows of the photo-z parity data (`inference_problem`; omega =
+get_omega(z, "normal", 0.1), prior_scale PRIOR_SCALE), from gpz_tpu on the
+CPU in float64:
+
+  flat                      the flat MAP (model.best's parameters)
+  logp, grad                gpz_log_posterior and its gradient at the MAP and
+                            at the JITTERED points of `jittered_points`, (4,)
+                            and (4, p)
+  hmc.*                     one _hmc_step (HMC_LEAPFROG steps at most,
+                            STEP_EPS, unit mass) of 2 chains at the MAP from
+                            the keys of INFERENCE_SEED: the draws JAX made
+                            (z, steps, u) and its results (x, logp,
+                            accept_prob)
+  nuts.*                    one _nuts_step (NUTS_DEPTH, STEP_EPS, unit mass)
+                            of 2 chains at the MAP from the keys of
+                            INFERENCE_SEED + 1: the draws (z, go_right,
+                            leaf_u, merge_u in the layout of
+                            gpz_tpu_torch.inference.nuts._nuts_step) and the
+                            results (x, logp, accept_stat, depth, diverged)
+  advi.*                    advi_fit for ADVI_STEPS steps of ADVI_MC draws
+                            from the MAP with the key of INFERENCE_SEED + 2:
+                            the draws (eps) and the results (mu, rho, elbos)
+
+INFERENCE_SEED is chosen so that no accept or take decision of the two
+transitions lies within DECISION_MARGIN of its threshold (asserted when the
+file is written), so that rounding differences of the order of the
+tolerances cannot flip one.
 """
 
 from __future__ import annotations
@@ -385,6 +415,217 @@ def load_golden_missing() -> dict:
         return {k: z[k] for k in z.files}
 
 
+# --- posterior inference over the trained photo-z hyperparameters ---
+
+GOLDEN_INFERENCE = os.path.join(HERE, "data",
+                                "torch_port_golden_inference.npz")
+INFERENCE_SEED = 5
+PRIOR_SCALE = 3.0
+JITTERED = 3
+JITTER = 3e-3
+STEP_EPS = 3e-3
+HMC_LEAPFROG = 8
+NUTS_DEPTH = 3
+ADVI_STEPS = 3
+ADVI_MC = 4
+#: the least distance of a decision of the golden transitions from its
+#: threshold, in log space (log u against a log-ratio or log-weight) and as
+#: a cosine for the U-turn signs: over ten times the largest difference of
+#: a log-ratio between the port and JAX (4e-4, measured on the CPU)
+DECISION_MARGIN = 5e-3
+
+#: how far gpz_tpu_torch may be from the inference golden values, (rtol,
+#: atol), on the CPU and on the GPU alike. logp is n_eff = 4,000 times the
+#: normalized nlml (~1e4 in all) at cond(Sigma) ~ 5e7: it agrees to ~4e-11
+#: relative, and its gradient carries the float64 resolution of the
+#: gradient in gamma (TRAIN_TOL's ~2e-6 on nlml) times n_eff, 2.4e-3 at
+#: most (measured on the CPU, largest entry 122). A transition's momenta
+#: take eps times those gradients in each of p = 3,301 coordinates, so the
+#: kinetic energy, and with it the log acceptance ratio, differs by ~4e-4:
+#: the accept probability by 2.8e-4 and NUTS's accept statistic (a mean of
+#: min(1, exp(-dH)) over the leaves) by 3.9e-3; positions by 7.3e-8. Adam
+#: divides each coordinate's gradient by its own scale, so where a
+#: gradient is near zero its float64 noise moves the step: ADVI's mu by
+#: 2.7e-5, rho by 6.8e-5, the ELBO by 9.1e-3 after 3 steps. Each bound
+#: below is five to ten times the difference measured on the CPU.
+INFERENCE_TOL = {
+    "flat": (0.0, 0.0),
+    "logp": (3e-10, 0.0), "grad": (1e-6, 2e-2),
+    "hmc.x": (0.0, 1e-6), "hmc.logp": (1e-9, 0.0),
+    "hmc.accept_prob": (0.0, 2e-3),
+    "nuts.x": (0.0, 1e-6), "nuts.logp": (1e-9, 0.0),
+    "nuts.accept_stat": (0.0, 2e-2),
+    "advi.mu": (0.0, 3e-4), "advi.rho": (0.0, 7e-4),
+    "advi.elbos": (0.0, 0.1),
+}
+
+
+def inference_problem(synthetic_sdss, split, get_omega):
+    """(X, Y, psi, omega, training) of the photo-z parity data (phase 3's
+    draw): 4,000 training rows of synthetic_sdss(N, seed=SEED)."""
+    mags, errs, z = synthetic_sdss(n=N, seed=SEED)
+    tr, _, _ = split(len(z), 0.2, 0.2, 0.6, np.random.default_rng(SEED))
+    return mags, z, errs ** 2, get_omega(z, "normal", 0.1), tr
+
+
+def jittered_points(flat):
+    """(JITTERED, p) points around the flat MAP, from a numpy generator."""
+    rng = np.random.default_rng(INFERENCE_SEED)
+    return flat[None, :] + JITTER * rng.standard_normal((JITTERED,
+                                                         flat.shape[0]))
+
+
+def _nuts_margins(vg, x0, logp0, grad0, z, go_right, leaf_u, merge_u, depth):
+    """Distances from their thresholds of the decisions of one unit-mass
+    NUTS transition of JAX's `depth` doublings, replayed with vg = value and
+    gradient of the log posterior: each leaf's and each merge's log u
+    against its log-weight ratio, and the cosines of the U-turn checks."""
+    out = []
+    h0 = -logp0 + 0.5 * np.sum(z * z)
+    ends = {True: (x0, z, grad0), False: (x0, z, grad0)}
+    tree_log_w = 0.0
+    for d in range(depth):
+        right = bool(go_right[d])
+        e = STEP_EPS if right else -STEP_EPS
+        x, p, g = ends[right]
+        log_w_sub, ckpt = -np.inf, {}
+        for i in range(2**d):
+            p_half = p + 0.5 * e * g
+            x = x + e * p_half
+            lp, g = (np.asarray(a) for a in vg(x))
+            p = p_half + 0.5 * e * g
+            log_w = h0 - (-lp + 0.5 * np.sum(p * p))
+            new = np.logaddexp(log_w_sub, log_w)
+            out.append(abs(np.log(leaf_u[2**d - 1 + i]) - (log_w - new)))
+            log_w_sub = new
+            for j in range(d + 1):
+                if i % 2**j == 0:
+                    ckpt[j] = (x, p)
+                if j and (i + 1) % 2**j == 0:
+                    dx = x - ckpt[j][0]
+                    out += [abs(np.dot(dx, v)) / np.linalg.norm(dx)
+                            / np.linalg.norm(v) for v in (ckpt[j][1], p)]
+        out.append(abs(np.log(merge_u[d]) - (log_w_sub - tree_log_w)))
+        tree_log_w = np.logaddexp(tree_log_w, log_w_sub)
+        ends[right] = (x, p, g)
+        dx = ends[True][0] - ends[False][0]
+        out += [abs(np.dot(dx, end[1])) / np.linalg.norm(dx)
+                / np.linalg.norm(end[1]) for end in ends.values()]
+    return np.array(out)
+
+
+def jax_inference():
+    """{name: array} of the inference golden file, from gpz_tpu on the
+    CPU in float64."""
+    sys.path.insert(0, ROOT)
+    import jax
+    import jax.numpy as jnp
+    from jax.flatten_util import ravel_pytree
+    from gpz_tpu import datautils
+    from gpz_tpu.checkpoint import load_model
+    from gpz_tpu.data import synthetic_sdss
+    from gpz_tpu.inference.mcmc import _hmc_step, gpz_log_posterior
+    from gpz_tpu.inference.nuts import _nuts_step
+    from gpz_tpu.inference.vi import advi_fit
+    from gpz_tpu.model import _make_dataset
+    from gpz_tpu.objective import nlog_ml
+
+    model = load_model(CHECKPOINT)
+    cfg = dataclasses.replace(model.cfg, dtype="float64")
+    X, Y, psi, omega, tr = inference_problem(synthetic_sdss, datautils.split,
+                                             datautils.get_omega)
+    Xn = (X - model.muX[None, :]) / model.sdX[None, :]
+    Yc = Y[:, None] - model.muY[None, :]
+    psi_c = datautils.fix_psi(psi, len(Y), model.sdX, True)
+    data = _make_dataset(Xn, Yc, psi_c, omega, tr, np.float64)
+    flat, unravel = ravel_pytree(model.best.params.astype(np.float64))
+    logp = gpz_log_posterior(
+        lambda x: nlog_ml(unravel(x), data, cfg, complete=True)[0],
+        n_eff=float(tr.sum()), k=1, prior_mean=flat, prior_scale=PRIOR_SCALE)
+    grad_fn = jax.grad(logp)
+    vg = jax.jit(jax.value_and_grad(logp))
+    points = np.concatenate([np.asarray(flat)[None],
+                             jittered_points(np.asarray(flat))])
+    vals = [vg(jnp.asarray(x)) for x in points]
+    out = {"flat": np.asarray(flat),
+           "logp": np.array([float(v) for v, _ in vals]),
+           "grad": np.stack([np.asarray(g) for _, g in vals])}
+    chains = 2
+    x0 = jnp.broadcast_to(flat, (chains, flat.shape[0]))
+    l0 = jnp.full((chains,), vals[0][0])
+    ones = jnp.ones_like(flat)
+
+    # HMC: the draws of _hmc_step's key schedule, then the step itself
+    keys = jax.random.split(jax.random.PRNGKey(INFERENCE_SEED), chains)
+    z, steps, u = [], [], []
+    for key in keys:
+        k1, k2, k3 = jax.random.split(key, 3)
+        z.append(jax.random.normal(k1, flat.shape, flat.dtype))
+        steps.append(jax.random.randint(k3, (), 1, HMC_LEAPFROG + 1))
+        u.append(jax.random.uniform(k2))
+    x, lp, ap = jax.jit(jax.vmap(lambda k, xx, ll: _hmc_step(
+        logp, grad_fn, k, xx, ll, STEP_EPS, ones, HMC_LEAPFROG)))(keys, x0,
+                                                                   l0)
+    out.update({"hmc.z": np.stack(z), "hmc.steps": np.array(steps),
+                "hmc.u": np.array(u), "hmc.x": np.asarray(x),
+                "hmc.logp": np.asarray(lp), "hmc.accept_prob": np.asarray(ap)})
+    margin = np.abs(np.log(out["hmc.u"]) - np.log(out["hmc.accept_prob"]))
+    assert margin.min() > DECISION_MARGIN, f"hmc: decision margin {margin}"
+
+    # NUTS: the draws of _nuts_step's key schedule (every leaf's, as if no
+    # chain stopped: a stopped chain's draws go unused), then the step
+    keys = jax.random.split(jax.random.PRNGKey(INFERENCE_SEED + 1), chains)
+    draws = {"z": [], "go_right": [], "leaf_u": [], "merge_u": []}
+    for key in keys:
+        kp, key = jax.random.split(key)
+        draws["z"].append(jax.random.normal(kp, flat.shape, flat.dtype))
+        go_right, leaf_u, merge_u = [], [], []
+        for d in range(NUTS_DEPTH):
+            key, kd, ks = jax.random.split(key, 3)
+            go_right.append(jax.random.bernoulli(kd))
+            for _ in range(2**d):
+                ks, sub = jax.random.split(ks)
+                leaf_u.append(jax.random.uniform(sub))
+            key, ka = jax.random.split(key)
+            merge_u.append(jax.random.uniform(ka))
+        for name, v in (("go_right", go_right), ("leaf_u", leaf_u),
+                        ("merge_u", merge_u)):
+            draws[name].append(np.array(v))
+    x, lp, acc, depth, div = jax.jit(jax.vmap(lambda k, xx, ll: _nuts_step(
+        logp, grad_fn, k, xx, ll, STEP_EPS, ones, NUTS_DEPTH)))(keys, x0, l0)
+    out["nuts.z"] = np.stack(draws["z"])
+    # (depth or leaf, chain), the layout the port's _nuts_step takes
+    for name in ("go_right", "leaf_u", "merge_u"):
+        out[f"nuts.{name}"] = np.stack(draws[name], axis=1)
+    out.update({"nuts.x": np.asarray(x), "nuts.logp": np.asarray(lp),
+                "nuts.accept_stat": np.asarray(acc),
+                "nuts.depth": np.asarray(depth),
+                "nuts.diverged": np.asarray(div)})
+    for c in range(chains):
+        margin = _nuts_margins(
+            vg, np.asarray(flat), float(vals[0][0]), np.asarray(vals[0][1]),
+            out["nuts.z"][c], out["nuts.go_right"][:, c],
+            out["nuts.leaf_u"][:, c], out["nuts.merge_u"][:, c],
+            int(out["nuts.depth"][c]))
+        assert margin.min() > DECISION_MARGIN, f"nuts: decision margin {margin}"
+
+    # ADVI: advi_fit's per-step keys and draws, then the fit
+    key = jax.random.PRNGKey(INFERENCE_SEED + 2)
+    out["advi.eps"] = np.stack([
+        np.asarray(jax.random.normal(k, (ADVI_MC, flat.shape[0]), flat.dtype))
+        for k in jax.random.split(key, ADVI_STEPS)])
+    mu, rho, elbos = advi_fit(logp, flat, key, num_steps=ADVI_STEPS,
+                              num_mc=ADVI_MC)
+    out.update({"advi.mu": np.asarray(mu), "advi.rho": np.asarray(rho),
+                "advi.elbos": np.asarray(elbos)})
+    return out
+
+
+def load_golden_inference() -> dict:
+    with np.load(GOLDEN_INFERENCE) as z:
+        return {k: z[k] for k in z.files}
+
+
 def main(which):
     os.makedirs(os.path.dirname(GOLDEN), exist_ok=True)
     if "photoz" in which:
@@ -402,7 +643,12 @@ def main(which):
                             **jax_missing())
         print(f"wrote {GOLDEN_MISSING} ({os.path.getsize(GOLDEN_MISSING)} "
               "bytes)")
+    if "inference" in which:
+        np.savez_compressed(GOLDEN_INFERENCE, seed=INFERENCE_SEED,
+                            **jax_inference())
+        print(f"wrote {GOLDEN_INFERENCE} "
+              f"({os.path.getsize(GOLDEN_INFERENCE)} bytes)")
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ["photoz", "train", "missing"])
+    main(sys.argv[1:] or ["photoz", "train", "missing", "inference"])

@@ -7,6 +7,7 @@ import subprocess
 import sys
 
 import numpy as np
+import torch_threads  # noqa: F401  (one torch thread per process)
 import pytest
 import torch
 
@@ -21,6 +22,7 @@ from gpz_tpu_torch import cli
 from gpz_tpu_torch import datautils as tdu
 from gpz_tpu_torch import metrics as tmetrics
 from gpz_tpu_torch.data import photoz as tphotoz
+from gpz_tpu_torch.inference import sample_posterior
 from gpz_tpu_torch.params import GPzParams
 
 from make_torch_port_golden import CHECKPOINT, ROOT
@@ -240,7 +242,8 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, gpz_tpu_torch, gpz_tpu_torch.data, gpz_tpu_torch.ops, "
         "gpz_tpu_torch.metrics, gpz_tpu_torch.cli, gpz_tpu_torch.ensemble, "
-        "gpz_tpu_torch.native, gpz_tpu_torch.optim, gpz_tpu_torch.bench\n"
+        "gpz_tpu_torch.native, gpz_tpu_torch.optim, gpz_tpu_torch.bench, "
+        "gpz_tpu_torch.inference\n"
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'gpz_tpu'))\n"
         "assert not bad, bad\n"
@@ -254,8 +257,9 @@ def test_import_leaves_jax_out():
 
 def test_entry_points_default_to_the_gpu_and_never_to_the_cpu(tmp_path):
     """load_model, init, fit_ensemble and the CLI's train without a device
-    go to the CUDA device: on a machine without one they raise torch's error
-    and return nothing that lives on the CPU."""
+    go to the CUDA device, and sample_posterior runs where load_model put
+    the model: on a machine without one they raise torch's error and return
+    nothing that lives on the CPU."""
     if torch.cuda.is_available():
         model = gpz_tpu_torch.load_model(CHECKPOINT)
         assert model.best.params.P.device.type == "cuda"
@@ -271,7 +275,9 @@ def test_entry_points_default_to_the_gpu_and_never_to_the_cpu(tmp_path):
                  lambda: gpz_tpu_torch.fit_ensemble(X, Y, "VL", 4,
                                                     n_restarts=2, max_iter=1),
                  lambda: cli.main(["train", str(csv), "--out", str(ckpt),
-                                   "--m", "4", "--max-iter", "1"])):
+                                   "--m", "4", "--max-iter", "1"]),
+                 lambda: sample_posterior(gpz_tpu_torch.load_model(CHECKPOINT),
+                                          X, Y, num_warmup=2, num_samples=2)):
         with pytest.raises((RuntimeError, AssertionError), match="(?i)cuda"):
             call()
     assert not ckpt.exists()

@@ -21,6 +21,7 @@ import subprocess
 import sys
 
 import numpy as np
+import torch_threads  # noqa: F401  (one torch thread per process)
 import pytest
 import jax
 import jax.numpy as jnp

@@ -12,6 +12,7 @@ predictions within PREDICTED.
 """
 
 import numpy as np
+import torch_threads  # noqa: F401  (one torch thread per process)
 import pytest
 import torch
 

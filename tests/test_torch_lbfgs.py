@@ -15,6 +15,7 @@ differences of nearly equal numbers close to an optimum, so they are held to
 """
 
 import numpy as np
+import torch_threads  # noqa: F401  (one torch thread per process)
 import jax
 import jax.numpy as jnp
 import pytest

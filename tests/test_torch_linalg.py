@@ -3,6 +3,7 @@ d in {1, 3, 5, 8}: the d-unrolled functions keep JAX's operation order, so
 they agree to rounding."""
 
 import numpy as np
+import torch_threads  # noqa: F401  (one torch thread per process)
 import jax
 import jax.numpy as jnp
 import pytest

@@ -6,6 +6,7 @@ each pattern), the masked objective on 4,096 rows, and of the VD run on
 70,000 rows the init point and the objective there (f at iteration 0)."""
 
 import numpy as np
+import torch_threads  # noqa: F401  (one torch thread per process)
 import pytest
 import torch
 

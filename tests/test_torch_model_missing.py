@@ -16,6 +16,7 @@ gpz_tpu's mixture scans run in float64 here (GPZ_MIX_DTYPE), as the port's do.
 import dataclasses
 
 import numpy as np
+import torch_threads  # noqa: F401  (one torch thread per process)
 import pytest
 import torch
 

@@ -11,6 +11,7 @@ import subprocess
 import sys
 
 import numpy as np
+import torch_threads  # noqa: F401  (one torch thread per process)
 import pytest
 
 from gpz_tpu.native import ffi as jffi

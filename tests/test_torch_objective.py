@@ -15,6 +15,7 @@ import dataclasses
 import itertools
 
 import numpy as np
+import torch_threads  # noqa: F401  (one torch thread per process)
 import jax
 import jax.numpy as jnp
 from jax.flatten_util import ravel_pytree

@@ -10,6 +10,7 @@ solves: 1e-8 / 1e-10, the bound tests/test_phi.py holds JAX to.
 """
 
 import numpy as np
+import torch_threads  # noqa: F401  (one torch thread per process)
 import jax
 import jax.numpy as jnp
 import pytest

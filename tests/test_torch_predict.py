@@ -5,6 +5,7 @@ predict() on the trained photo-z checkpoint and its JAX golden file."""
 import importlib
 
 import numpy as np
+import torch_threads  # noqa: F401  (one torch thread per process)
 import jax.numpy as jnp
 import pytest
 import torch

@@ -11,6 +11,7 @@ and gamma are differences of sums of order 1).
 import importlib
 
 import numpy as np
+import torch_threads  # noqa: F401  (one torch thread per process)
 import jax.numpy as jnp
 import pytest
 import torch

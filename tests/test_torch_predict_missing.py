@@ -16,6 +16,7 @@ relative, 1e-5 absolute.
 import importlib
 
 import numpy as np
+import torch_threads  # noqa: F401  (one torch thread per process)
 import jax.numpy as jnp
 import pytest
 import torch

@@ -17,6 +17,7 @@ kernel pair.
 """
 
 import numpy as np
+import torch_threads  # noqa: F401  (one torch thread per process)
 import pytest
 import torch
 import jax.numpy as jnp

@@ -16,6 +16,7 @@ differences through exp(lnPHI) and the (m x m) inverse, to 1e-4 (measured
 import dataclasses
 
 import numpy as np
+import torch_threads  # noqa: F401  (one torch thread per process)
 import pytest
 import torch
 

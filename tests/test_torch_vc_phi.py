@@ -6,6 +6,7 @@ themselves are checked against the same twins on the GPU by chip_smoke.py.
 """
 
 import numpy as np
+import torch_threads  # noqa: F401  (one torch thread per process)
 import jax
 import jax.numpy as jnp
 import pytest
