@@ -2,6 +2,8 @@
 
     python3 chip_smoke.py [--profile]
 
+(`--parallel-rank r dir` is phase 18's rank r, started by the script.)
+
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. device      the card's name and power limit (nvidia-smi), torch's name
@@ -119,6 +121,26 @@ Phases, each printing its own lines; any failure exits non-zero:
                that (c)-(f) launched (recorded from that run, the shapes'
                counts held to what the run implies; the backward on the
                cotangent the run gave it), with times and bounds
+18. parallel   gpz_tpu_torch.parallel at phase 7's problem and init point:
+               (a) a world of one under NCCL in this process:
+               sharded_nlog_ml and its gradient against nlog_ml's within
+               TRAIN_TOL, train_sharded for 25 iterations against phase 7's
+               trace, its all-reduces (counted and held to what the path
+               implies, and timed between synchronizations) and seconds per
+               evaluation; (b) two gloo ranks on the card, each a copy of
+               this script (`--parallel-rank r dir`, waited on with a
+               deadline): each loads its host_row_range of the 70,000 rows
+               (global_dataset: n_eff 70,000), the sharded value and
+               gradient against the one-process ones, train_sharded's trace,
+               69,999 rows split 35,000 / 34,999 and padded,
+               ensemble_grad_step on a (restart 2, data 1) mesh against each
+               restart stepped alone, fit_ensemble(mesh) with 2 restarts
+               against fit_ensemble(mesh=None) within RESTART_TOL, every
+               replicated value bit-equal on both ranks; (c) HMC and NUTS, 2
+               chains on each rank, the warmup pooled over the restart group
+               (axis_name): the step size bit-equal on both ranks. Each
+               rank's launches are held to what its path implies, and the
+               kernel pair to plain at every shape the ranks launched
 
 With --profile, one warm gradient evaluation at the training shape is also
 traced with torch.profiler and its kernel table printed.
@@ -200,6 +222,15 @@ PREDICTIVE_DRAWS = 40
 # (TRAIN_TOL's "trained.grad"; batched against single differed by up to
 # 1.4e-5 of 8.6e-2 in a CPU rehearsal at the checkpoint)
 BATCH_TOL = {"nlml": (1e-9, 0.0), "grad": (1e-6, 5e-5)}
+
+# phase 18: a world of one runs on this backend (NCCL on the card; two
+# ranks on one card need gloo, as NCCL refuses them), the deadline of the
+# two gloo ranks, the step of the ensemble step, the samplers' depth on the
+# ranks and their chains per rank
+PARALLEL_BACKEND = "nccl"
+RANK_TIMEOUT_S = 300.0
+PARALLEL_LR = 1e-3
+PAR_WARMUP, PAR_DRAWS, PAR_CHAINS = 60, 60, 2
 
 # H100 SXM peaks for the bounds (NVIDIA's data sheet): device memory
 # 3.35 TB/s; FP64 34 TFLOP/s and FP32 67 TFLOP/s outside the tensor cores
@@ -1074,7 +1105,7 @@ def within(name, got, want, tol) -> float:
     err = np.abs(got - want)
     ratio = float(np.max(err / (atol + rtol * np.abs(want)))) if err.max() \
         else 0.0
-    print(f"inference {name}: max_abs_err {err.max():.3e} of max "
+    print(f"{name}: max_abs_err {err.max():.3e} of max "
           f"{np.abs(want).max():.3e} (err/bound {ratio:.3f})")
     check(ratio <= 1.0, f"{name}: beyond rtol={rtol}, atol={atol}")
     return ratio
@@ -1111,10 +1142,10 @@ def compare_batched(label, batched, single, X) -> dict:
     ls = launches()
     check(lb == (1, 1) and ls == (C, C), f"batched {label}: launches "
           f"{lb} batched, {ls} single, expected (1, 1) and ({C}, {C})")
-    within(f"batched-{label} nlml", fb.cpu().numpy(), fs.cpu().numpy(),
-           BATCH_TOL["nlml"])
-    within(f"batched-{label} grad", gb.cpu().numpy(), gs.cpu().numpy(),
-           BATCH_TOL["grad"])
+    within(f"inference batched-{label} nlml", fb.cpu().numpy(),
+           fs.cpu().numpy(), BATCH_TOL["nlml"])
+    within(f"inference batched-{label} grad", gb.cpu().numpy(),
+           gs.cpu().numpy(), BATCH_TOL["grad"])
     tb, ts = [], []
     for _ in range(7):
         tb.append(host_ms(lambda: _value_and_grad(batched, X)))
@@ -1236,13 +1267,13 @@ def phase_inference(model64, mags, errs, z, test_rows, data70, flat70,
 
     # (b) against JAX: log posterior, one HMC and one NUTS transition, ADVI
     gold = load_golden_inference()
-    within("golden flat", flat.cpu().numpy(), gold["flat"],
+    within("inference golden flat", flat.cpu().numpy(), gold["flat"],
            INFERENCE_TOL["flat"])
     pts = np.concatenate([gold["flat"][None], jittered_points(gold["flat"])])
     lp, g = _value_and_grad(logp, torch.as_tensor(pts, device=dev))
-    within("golden logp", lp.cpu().numpy(), gold["logp"],
+    within("inference golden logp", lp.cpu().numpy(), gold["logp"],
            INFERENCE_TOL["logp"])
-    within("golden grad", g.cpu().numpy(), gold["grad"],
+    within("inference golden grad", g.cpu().numpy(), gold["grad"],
            INFERENCE_TOL["grad"])
     def dv(name):
         return torch.as_tensor(gold[name], device=dev)
@@ -1260,14 +1291,14 @@ def phase_inference(model64, mags, errs, z, test_rows, data70, flat70,
           f"golden hmc: launches {launches()}")
     for name, got in zip(("x", "logp", "accept_prob"), (hmc[0], hmc[1],
                                                         hmc[3])):
-        within(f"golden hmc.{name}", got.cpu().numpy(), gold[f"hmc.{name}"],
-               INFERENCE_TOL[f"hmc.{name}"])
+        within(f"inference golden hmc.{name}", got.cpu().numpy(),
+               gold[f"hmc.{name}"], INFERENCE_TOL[f"hmc.{name}"])
     reset_launches()
     nuts = _nuts_step(logp, x0, l0, g0, eps, ones, *nuts_draws, NUTS_DEPTH)
     nuts_l = launches()
     for name, got in zip(("x", "logp", "accept_stat"), (nuts[0], nuts[1],
                                                         nuts[3])):
-        within(f"golden nuts.{name}", got.cpu().numpy(),
+        within(f"inference golden nuts.{name}", got.cpu().numpy(),
                gold[f"nuts.{name}"], INFERENCE_TOL[f"nuts.{name}"])
     check(np.array_equal(nuts[4].cpu().numpy(), gold["nuts.depth"])
           and np.array_equal(nuts[5].cpu().numpy(), gold["nuts.diverged"]),
@@ -1280,8 +1311,8 @@ def phase_inference(model64, mags, errs, z, test_rows, data70, flat70,
                               num_mc=gold["advi.eps"].shape[1],
                               eps=dv("advi.eps"))
     for name, got in (("mu", mu), ("rho", rho), ("elbos", elbos)):
-        within(f"golden advi.{name}", got.cpu().numpy(), gold[f"advi.{name}"],
-               INFERENCE_TOL[f"advi.{name}"])
+        within(f"inference golden advi.{name}", got.cpu().numpy(),
+               gold[f"advi.{name}"], INFERENCE_TOL[f"advi.{name}"])
     # host syncs of the two transitions: two per evaluation (the jitter
     # ladders' reads), plus at most one per HMC transition and one per leaf
     per_eval = rec_a["syncs_batched"]
@@ -1403,6 +1434,505 @@ def phase_inference(model64, mags, errs, z, test_rows, data70, flat70,
     return got, fwd_recs, bwd_recs
 
 
+def timed_collectives(fn):
+    """(fn's result, [seconds of each all-reduce of parallel.sharded]) with
+    every all-reduce between two synchronizations: what the collectives
+    cost, not the pipelined wall time."""
+    import torch
+    from gpz_tpu_torch.parallel import sharded
+
+    real, spent = sharded.all_reduce, []
+
+    def timed(t, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(t, group)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    sharded.all_reduce = timed
+    try:
+        return fn(), spent
+    finally:
+        sharded.all_reduce = real
+
+
+def rank_data(prob, X, Y, psi, rows, device):
+    """The training problem's rows `rows` (a boolean mask over X's rows)
+    under the normalization of phase 18's problem file, on `device`."""
+    import torch
+    from gpz_tpu_torch import datautils
+    from gpz_tpu_torch.model import _make_dataset
+
+    Xn = (X - prob["muX"][None, :]) / prob["sdX"][None, :]
+    Yc = Y[:, None] - prob["muY"][None, :]
+    psi_c = datautils.fix_psi(psi, len(Y), prob["sdX"], True)
+    return _make_dataset(Xn, Yc, psi_c, np.ones(len(Y)), rows,
+                         torch.float64, device)
+
+
+def first_rows(mask, lo, hi):
+    """The mask of the rows lo:hi of those that `mask` selects."""
+    out = np.zeros(len(mask), bool)
+    out[np.where(mask)[0][lo:hi]] = True
+    return out
+
+
+def parallel_rank(rank: int, workdir: str) -> int:
+    """Phase 18 (b) and (c) as rank `rank` of two gloo ranks on the card,
+    started by phase_parallel: the problem from workdir/problem.npz, the
+    results to workdir/rank<rank>.npz and the kernel pair's recorded
+    arguments to workdir/rank<rank>_sites.pt."""
+    import torch
+    import torch.distributed as dist
+    import gpz_tpu_torch
+    from gpz_tpu_torch.config import ModelConfig, TrainConfig
+    from gpz_tpu_torch.data import synthetic_sdss
+    from gpz_tpu_torch.dataset import pad_dataset
+    from gpz_tpu_torch.inference import hmc_sample, nuts_sample
+    from gpz_tpu_torch.ops import vc_phi
+    from gpz_tpu_torch.params import GPzParams
+    from gpz_tpu_torch.parallel import (
+        RESTART_AXIS, distributed, ensemble_grad_step, make_mesh,
+        shard_dataset, sharded, sharded_value_and_grad, train_sharded,
+    )
+    from make_torch_port_golden import train_problem
+
+    with np.load(os.path.join(workdir, "problem.npz")) as z:
+        prob = {k: z[k] for k in z.files}
+    dev = torch.device(str(prob["device"]))
+    f64 = torch.float64
+    fields = json.loads(str(prob["fields"]))
+    cfg = ModelConfig(**json.loads(str(prob["cfg"])))
+    params0 = GPzParams.from_numpy(
+        {f: prob[f"param.{f}"] for f in fields}, dev, f64)
+    flat0, unravel = params0.flatten()
+    n_train, n_valid = int(prob["n_train"]), int(prob["n_valid"])
+    X, Y, psi, tr_all, va_all = train_problem(synthetic_sdss)
+    tr = first_rows(tr_all, 0, n_train)
+    va = first_rows(va_all, 0, n_valid)
+    out, launches = {}, {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def step(name, fn):
+        """fn() with its seconds, all-reduces and launches of the pair."""
+        vc_phi.LAUNCHES_FWD = vc_phi.LAUNCHES_BWD = 0
+        before = sharded.COLLECTIVES
+        sync()
+        t0 = time.perf_counter()
+        result = fn()
+        sync()
+        out[f"{name}.s"] = time.perf_counter() - t0
+        out[f"{name}.collectives"] = sharded.COLLECTIVES - before
+        launches[name] = (vc_phi.LAUNCHES_FWD, vc_phi.LAUNCHES_BWD)
+        return result
+
+    distributed.initialize(f"file://{os.path.join(workdir, 'gloo')}", 2,
+                           rank, backend="gloo")
+    sites = {k: {} for k in ("fwd", "bwd", "fwd_uneven", "bwd_uneven")}
+    try:
+        mesh = make_mesh()
+        with pair_recorded(sites["fwd"], sites["bwd"]):
+            # rows over the data group: this rank loads its range only
+            lo, hi = distributed.host_row_range(n_train)
+            local = rank_data(prob, X, Y, psi, first_rows(tr, lo, hi), "cpu")
+            gdata, n_eff = distributed.global_dataset(local, mesh, device=dev)
+            out["value.n_eff"], out["value.rows"] = n_eff, gdata.n
+            fun = sharded_value_and_grad(unravel, cfg, mesh, True)
+            f, g, _ = step("value", lambda: fun(flat0, gdata, n_eff))
+            out["value.f"], out["value.g"] = float(f), g.cpu().numpy()
+            # the first evaluation of a process starts cuBLAS and loads the
+            # kernels: time a second one
+            step("warm", lambda: fun(flat0, gdata, n_eff))
+            _, spent = timed_collectives(lambda: fun(flat0, gdata, n_eff))
+            out["value.collective_s"] = np.asarray(spent)
+            del gdata
+
+            # train_sharded takes the whole dataset and keeps its share
+            data_tr = rank_data(prob, X, Y, psi, tr, dev)
+            data_va = rank_data(prob, X, Y, psi, va, dev)
+            res, _ = step("train", lambda: train_sharded(
+                params0, data_tr, cfg, mesh, valid_data=data_va,
+                tc=TrainConfig(max_iter=int(prob["iters"]),
+                               max_attempts=int(prob["max_attempts"])),
+                complete=True))
+            out["train.f"] = res.trace["f"]
+            out["train.fevals"] = res.trace["fevals"]
+            out["train.iterations"] = res.iterations
+            out["train.x"] = res.x.cpu().numpy()
+
+        # the uneven split: n_train - 1 rows, the short rank padded
+        with pair_recorded(sites["fwd_uneven"], sites["bwd_uneven"]):
+            n_odd = n_train - 1
+            lo, hi = distributed.host_row_range(n_odd)
+            local = pad_dataset(rank_data(prob, X, Y, psi,
+                                          first_rows(tr, lo, hi), "cpu"),
+                                -(-n_odd // 2))
+            gdata, n_eff = distributed.global_dataset(local, mesh,
+                                                      device=dev)
+            f, g, _ = step("uneven", lambda: fun(flat0, gdata, n_eff))
+            out.update({"uneven.n_eff": n_eff, "uneven.rows": hi - lo,
+                        "uneven.f": float(f), "uneven.g": g.cpu().numpy()})
+            del gdata
+
+        with pair_recorded(sites["fwd"], sites["bwd"]):
+            # restarts over the restart group, all rows on each rank
+            grid = make_mesh(n_data=1, n_restart=2)
+            stacked = torch.as_tensor(prob["stacked"], device=dev)
+            sdata, n_eff = shard_dataset(data_tr, grid)
+            stepped = step("ensemble_step", lambda: ensemble_grad_step(
+                unravel(stacked), sdata, cfg, grid, n_eff,
+                lr=float(prob["lr"]), complete=True))
+            out["ensemble_step.x"] = torch.cat(
+                [getattr(stepped, f).reshape(2, -1) for f in fields],
+                dim=1).cpu().numpy()
+            model, info = step("fit_ensemble", lambda: (
+                gpz_tpu_torch.fit_ensemble(
+                    X, Y, "VC", cfg.m, n_restarts=2, training=tr,
+                    validation=va, psi=psi, max_iter=int(prob["iters"]),
+                    seed=1, dtype="float64", mesh=grid, device=dev)))
+            for k in ("restart_scores", "best_restart", "iterations",
+                      "fun_evals"):
+                out[f"fit.{k}"] = info[k]
+            for which in ("best", "last"):
+                out[f"fit.{which}"] = getattr(
+                    model, which).params.flatten()[0].cpu().numpy()
+
+        # (c) the samplers' warmup pooled over the restart group, on
+        # tests/test_collective_adapt.py's correlated Gaussian
+        A = np.array([[2.0, 0.5, 0.0], [0.5, 1.0, 0.3], [0.0, 0.3, 0.5]])
+        prec = torch.as_tensor(np.linalg.inv(A), device=dev)
+        mu = torch.tensor([1.0, -2.0, 0.5], dtype=f64, device=dev)
+
+        def logp(x):
+            d = x - mu
+            return -0.5 * torch.sum((d @ prec) * d, dim=-1)
+
+        for name, sampler, kw in (("hmc", hmc_sample, dict(num_leapfrog=16)),
+                                  ("nuts", nuts_sample, {})):
+            gen = torch.Generator(device=dev).manual_seed(100 + rank)
+            samples, sinfo = step(name, lambda: sampler(
+                logp, torch.zeros(3, dtype=f64, device=dev), gen,
+                num_warmup=PAR_WARMUP, num_samples=PAR_DRAWS,
+                num_chains=PAR_CHAINS, collective_adapt=True,
+                axis_name=grid.get_group(RESTART_AXIS), **kw))
+            out[f"{name}.step_size"] = sinfo["step_size"].cpu().numpy()
+            out[f"{name}.accept"] = sinfo["accept_rate"].cpu().numpy()
+            out[f"{name}.mean"] = samples.reshape(-1, 3).mean(0).cpu().numpy()
+    finally:
+        dist.destroy_process_group()
+    for name, counts in launches.items():
+        out[f"{name}.launches"] = list(counts)
+    out["sites"] = json.dumps({kind: [[n, b, rec[0]] for (n, b), rec in
+                                      recs.items()]
+                               for kind, recs in sites.items()})
+    torch.save({kind: {shape: tuple(a.cpu() for a in rec[1])
+                       for shape, rec in recs.items()}
+                for kind, recs in sites.items()},
+               os.path.join(workdir, f"rank{rank}_sites.pt"))
+    np.savez(os.path.join(workdir, f"rank{rank}.npz"),
+             **{k: np.asarray(v) for k, v in out.items()})
+    print(f"parallel rank {rank}: done")
+    return 0
+
+
+def bit_equal(name, results, key):
+    """The value of `key` in every rank's results, checked bit-equal."""
+    first = results[0][key]
+    check(all(np.array_equal(r[key], first) for r in results[1:]),
+          f"{name}: {key} differs in its bits between the ranks")
+    return first
+
+
+def fit_launches(info, r) -> tuple:
+    """(fwd, bwd) launches of one process of fit_ensemble that trained the
+    restarts `r`: init's posterior and each restart's evaluations and
+    scored iterations, then `last` and `best` resolved (phase 13)."""
+    evals = int(sum(info["fun_evals"][i] for i in r))
+    its = int(sum(info["iterations"][i] for i in r))
+    return len(r) + evals + its + len(r) + 4, evals
+
+
+def phase_parallel(model, X, Y, psi, tr, va, data_tr, trace_f,
+                   eval_ms) -> tuple:
+    """18. Sharded and multi-process training at phase 7's problem and init
+    point: (a) a world of one under NCCL in this process, (b) two gloo
+    ranks on the card, each a copy of this script, (c) the samplers' warmup
+    pooled over those ranks. Returns ((fwd, bwd) launches of the path, the
+    kernel pair's records at every shape the ranks launched, forward and
+    backward)."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    import gpz_tpu_torch
+    from gpz_tpu_torch import datautils
+    from gpz_tpu_torch import model as model_mod
+    from gpz_tpu_torch.config import TrainConfig
+    from gpz_tpu_torch.parallel import (
+        distributed, make_mesh, sharded, sharded_nlog_ml, train_sharded,
+    )
+    from make_torch_port_golden import TRAIN_TOL
+
+    t_phase = time.perf_counter()
+    dev = data_tr.X.device
+    cfg = model.cfg
+    flat0, unravel = model.last.params.flatten()
+    n = data_tr.n
+    Xn = (X - model.muX[None, :]) / model.sdX[None, :]
+    Yc = Y[:, None] - model.muY[None, :]
+    psi_c = datautils.fix_psi(psi, len(Y), model.sdX, True)
+    data_va = model_mod._make_dataset(Xn, Yc, psi_c, np.ones(len(Y)), va,
+                                      torch.float64, dev)
+
+    # the references in one process, before the ranks share the card
+    f1, g1 = objective_at(flat0, unravel, data_tr, cfg)
+    f_odd, g_odd = objective_at(flat0, unravel, data_tr[:n - 1], cfg)
+    rng = np.random.default_rng(18)
+    stacked = flat0[None].cpu().numpy() + np.stack([
+        np.zeros(flat0.numel()), 0.01 * rng.standard_normal(flat0.numel())])
+    alone = [objective_at(torch.as_tensor(x, device=dev), unravel, data_tr,
+                          cfg)[1] for x in stacked]
+    ref_model, ref_info = gpz_tpu_torch.fit_ensemble(
+        X, Y, "VC", cfg.m, n_restarts=2, training=tr, validation=va,
+        psi=psi, max_iter=TRAIN_ITERS, seed=1, dtype="float64", device=dev)
+    train_tc = TrainConfig(max_iter=TRAIN_ITERS, max_attempts=MAX_ATTEMPTS)
+    torch.cuda.synchronize()
+
+    with tempfile.TemporaryDirectory() as workdir:
+        # (a) a world of one in this process
+        reset_launches()
+        sharded.COLLECTIVES = 0
+        distributed.initialize(f"file://{os.path.join(workdir, 'one')}", 1,
+                               0, backend=PARALLEL_BACKEND)
+        try:
+            check(dist.get_world_size() == 1 and dist.get_backend()
+                  == PARALLEL_BACKEND, "parallel: no world of one")
+            mesh = make_mesh()
+            flat = flat0.clone().requires_grad_(True)
+            f, _ = sharded_nlog_ml(unravel(flat), data_tr, cfg, mesh,
+                                   float(n), complete=True)
+            g, = torch.autograd.grad(f, flat)
+            one_f = within("parallel (a) nlml", float(f.detach()), f1,
+                               TRAIN_TOL["init.nlml"])
+            one_g = within("parallel (a) gradient", g.cpu().numpy(), g1,
+                               TRAIN_TOL["init.grad"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res, _ = train_sharded(model.last.params, data_tr, cfg, mesh,
+                                   valid_data=data_va, tc=train_tc,
+                                   complete=True)
+            torch.cuda.synchronize()
+            one_s = time.perf_counter() - t0
+            one_l = launches()
+            one_c = sharded.COLLECTIVES
+            fun = sharded.sharded_value_and_grad(unravel, cfg, mesh, True)
+            _, spent = timed_collectives(lambda: fun(flat0, data_tr,
+                                                     float(n)))
+        finally:
+            dist.destroy_process_group()
+        its, evals = res.iterations, int(res.trace["fevals"][-1])
+        trace_ratio = within("parallel (a) train_sharded trace",
+                                 res.trace["f"], trace_f,
+                                 TRAIN_TOL["trace.f"])
+        want_l = (1 + evals + its + 1, 1 + evals)
+        # sharded_nlog_ml: the complete flag agreed, 7 sums forward, the
+        # flat gradient's mean; train_sharded: the flag agreed twice, per
+        # evaluation 7 sums and the gradient's mean, per scored iteration
+        # the two sums of holdout_metrics
+        want_c = 9 + 2 + 8 * evals + 2 * (its + 1)
+        print(f"parallel (a): world of one under {PARALLEL_BACKEND}: "
+              f"sharded nlml and gradient vs nlog_ml err/bound {one_f:.3f} / "
+              f"{one_g:.3f}; train_sharded {its} iterations, {evals} "
+              f"evaluations in {one_s:.3f} s ({one_s / evals * 1e3:.3f} ms "
+              f"per evaluation vs phase 7's {eval_ms:.3f}), f trace vs "
+              f"phase 7's err/bound {trace_ratio:.3f} (bit-equal: "
+              f"{np.array_equal(res.trace['f'], trace_f)}); all-reduces "
+              f"{one_c} (expected {want_c}: {len(spent)} per evaluation, "
+              f"{sum(spent) * 1e3:.3f} ms of one evaluation between "
+              f"synchronizations, {np.median(spent) * 1e6:.1f} us median); "
+              f"launches fwd/bwd {one_l} (expected {want_l})")
+        check(one_l == want_l, "parallel (a): launches differ from what the "
+              "path implies")
+        check(one_c == want_c and len(spent) == 8, "parallel (a): "
+              "all-reduces differ from what the path implies")
+
+        # (b) and (c): two gloo ranks on the card
+        arrays = model.last.params.to_numpy()
+        np.savez(os.path.join(workdir, "problem.npz"),
+                 device=str(dev), cfg=json.dumps(dataclasses.asdict(cfg)),
+                 fields=json.dumps(list(arrays)),
+                 **{f"param.{k}": v for k, v in arrays.items()},
+                 muX=model.muX, sdX=model.sdX, muY=model.muY, n_train=n,
+                 n_valid=data_va.n, iters=TRAIN_ITERS,
+                 max_attempts=MAX_ATTEMPTS, stacked=stacked, lr=PARALLEL_LR)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+             str(r), workdir], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        deadline = time.monotonic() + RANK_TIMEOUT_S
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))[0])
+        except subprocess.TimeoutExpired:
+            check(False, f"parallel: the ranks ran past {RANK_TIMEOUT_S} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks_s = time.perf_counter() - t0
+        for r, p in enumerate(procs):
+            check(p.returncode == 0, f"parallel: rank {r} exited "
+                  f"{p.returncode}:\n{outs[r][-3000:]}")
+        results = []
+        for r in range(2):
+            with np.load(os.path.join(workdir, f"rank{r}.npz")) as z:
+                results.append({k: z[k] for k in z.files})
+        saved = [torch.load(os.path.join(workdir, f"rank{r}_sites.pt"))
+                 for r in range(2)]
+
+    # (b) the values
+    out = results
+    check(all(float(r["value.n_eff"]) == n for r in out)
+          and sorted(int(r["value.rows"]) for r in out) == [n // 2,
+                                                           n - n // 2],
+          "parallel (b): global_dataset's n_eff or rows")
+    b_f = within("parallel (b) nlml", bit_equal("(b)", out, "value.f"),
+                     f1, TRAIN_TOL["init.nlml"])
+    b_g = within("parallel (b) gradient", bit_equal("(b)", out,
+                                                         "value.g"),
+                     g1, TRAIN_TOL["init.grad"])
+    tr_f = bit_equal("(b) train", out, "train.f")
+    bit_equal("(b) train", out, "train.x")
+    b_t = within("parallel (b) train_sharded trace", tr_f, trace_f,
+                     TRAIN_TOL["trace.f"])
+    check(sorted(int(r["uneven.rows"]) for r in out) == [(n - 1) // 2,
+                                                        n - (n - 1) // 2 - 1]
+          and all(float(r["uneven.n_eff"]) == n - 1 for r in out),
+          "parallel (b): the uneven split's rows or n_eff")
+    u_f = within("parallel (b) uneven nlml", bit_equal(
+        "(b) uneven", out, "uneven.f"), f_odd, TRAIN_TOL["init.nlml"])
+    u_g = within("parallel (b) uneven gradient", bit_equal(
+        "(b) uneven", out, "uneven.g"), g_odd, TRAIN_TOL["init.grad"])
+    stepped = bit_equal("(b) ensemble step", out, "ensemble_step.x")
+    e_g = max(within(f"parallel (b) ensemble step restart {r}",
+                         (stacked[r] - stepped[r]) / PARALLEL_LR,
+                         alone[r], BATCH_TOL["grad"]) for r in range(2))
+    for key in ("fit.restart_scores", "fit.best_restart", "fit.iterations",
+                "fit.fun_evals", "fit.best", "fit.last"):
+        bit_equal("(b) fit_ensemble", out, key)
+    fit = out[0]
+    check(int(fit["fit.best_restart"]) == ref_info["best_restart"]
+          and np.array_equal(fit["fit.iterations"], ref_info["iterations"])
+          and np.array_equal(fit["fit.fun_evals"], ref_info["fun_evals"]),
+          "parallel (b): fit_ensemble(mesh) took other branches than "
+          "fit_ensemble(mesh=None)")
+    f_s = within("parallel (b) fit_ensemble scores",
+                     fit["fit.restart_scores"], ref_info["restart_scores"],
+                     RESTART_TOL)
+    f_p = max(within(f"parallel (b) fit_ensemble {w}", fit[f"fit.{w}"],
+                         getattr(ref_model, w).params.flatten()[0].cpu(),
+                         RESTART_TOL) for w in ("best", "last"))
+    # launches of the path on each rank, against what it implies
+    path_l = [0, 0]
+    for r, res_r in enumerate(out):
+        evals = int(res_r["train.fevals"][-1])
+        its = int(res_r["train.iterations"])
+        want = {"value": (1, 1), "warm": (1, 1),
+                "train": (evals + its + 1, evals),
+                "uneven": (1, 1), "ensemble_step": (1, 1),
+                "fit_ensemble": fit_launches(ref_info, [r]),
+                "hmc": (0, 0), "nuts": (0, 0)}
+        got = {k: tuple(int(x) for x in res_r[f"{k}.launches"])
+               for k in want}
+        check(got == want, f"parallel (b): rank {r} launched {got}, the "
+              f"path implies {want}")
+        for k in ("value", "warm", "train", "uneven", "ensemble_step",
+                  "fit_ensemble"):
+            path_l[0] += got[k][0]
+            path_l[1] += got[k][1]
+    r0 = out[0]
+    coll = r0["value.collective_s"]
+    print(f"parallel (b): 2 gloo ranks on the card in {ranks_s:.1f} s "
+          f"(start-up included); n_eff {n}; nlml and gradient vs one "
+          f"process err/bound {b_f:.3f} / {b_g:.3f}, bit-equal on both "
+          f"ranks; one warm evaluation {r0['warm.s'] * 1e3:.3f} ms (the "
+          f"first {r0['value.s'] * 1e3:.3f}) with "
+          f"{int(r0['warm.collectives'])} all-reduces "
+          f"({coll.sum() * 1e3:.3f} ms between synchronizations, "
+          f"{np.median(coll) * 1e6:.1f} us median); train_sharded "
+          f"{int(r0['train.iterations'])} iterations, "
+          f"{int(r0['train.fevals'][-1])} evaluations in "
+          f"{float(r0['train.s']):.3f} s "
+          f"({float(r0['train.s']) / int(r0['train.fevals'][-1]) * 1e3:.3f}"
+          f" ms per evaluation vs phase 7's {eval_ms:.3f}), traces "
+          f"bit-equal, vs phase 7's err/bound {b_t:.3f}")
+    print(f"parallel (b): uneven {n - 1} rows as "
+          f"{sorted(int(r['uneven.rows']) for r in out)}, n_eff "
+          f"{n - 1}: err/bound {u_f:.3f} / {u_g:.3f}; ensemble_grad_step "
+          f"on (restart 2, data 1) vs each restart alone err/bound "
+          f"{e_g:.3f}; fit_ensemble(mesh) 2 restarts, best "
+          f"{int(fit['fit.best_restart'])}, scores "
+          f"{fit['fit.restart_scores'].tolist()} vs mesh=None err/bound "
+          f"{f_s:.3f}, parameters {f_p:.3f}, the same model on both ranks "
+          f"({float(r0['fit_ensemble.s']):.3f} s); launches fwd/bwd "
+          f"{tuple(path_l)}")
+
+    # (c) the samplers' pooled adaptation
+    for name in ("hmc", "nuts"):
+        eps = bit_equal(f"(c) {name}", out, f"{name}.step_size")
+        check(eps.shape == () and np.isfinite(eps) and float(eps) > 0,
+              f"parallel (c): {name} step size {eps}")
+        acc = np.concatenate([r[f"{name}.accept"] for r in out])
+        print(f"parallel (c): {name} {PAR_CHAINS} chains on each of 2 "
+              f"ranks, {PAR_WARMUP} + {PAR_DRAWS}: step size {float(eps):.6f}"
+              f" bit-equal on both ranks, acceptance {acc.round(3).tolist()}"
+              f", pooled mean "
+              f"{np.mean([r[f'{name}.mean'] for r in out], 0).round(3)} "
+              f"(target [1, -2, 0.5]) in "
+              f"{max(float(r[f'{name}.s']) for r in out):.2f} s")
+
+    # the kernel pair against plain at every shape the ranks launched, on
+    # each rank's first arguments there; launches summed over the ranks
+    def gathered(kind):
+        counts = {}
+        for r in out:
+            for nn, b, c in json.loads(str(r["sites"]))[kind]:
+                counts[(nn, b)] = counts.get((nn, b), 0) + c
+        return {shape: [counts[shape], tuple(
+            a.to(dev) for a in saved[0][kind].get(
+                shape, saved[-1][kind].get(shape, ())))]
+                for shape in counts}
+
+    fwd = gathered("fwd")
+    bwd = gathered("bwd")
+    # the uneven split's sites on the rank that holds the padded row
+    fwd_u = {s_: [c, tuple(a.to(dev) for a in saved[1]["fwd_uneven"][s_])]
+             for s_, (c, _) in gathered("fwd_uneven").items()}
+    bwd_u = {s_: [c, tuple(a.to(dev) for a in saved[1]["bwd_uneven"][s_])]
+             for s_, (c, _) in gathered("bwd_uneven").items()}
+    del saved
+    fwd_recs = compare_sites("parallel", fwd, "phase-18 main path (both "
+                             "ranks)", key="launches")
+    fwd_recs.update(compare_sites("parallel-uneven", fwd_u, "uneven split "
+                                  "(both ranks)", key="launches"))
+    bwd_recs = compare_bwd_sites("parallel", bwd, "phase-18 main path (both "
+                                 "ranks)")
+    bwd_recs.update(compare_bwd_sites("parallel-uneven", bwd_u,
+                                      "uneven split (both ranks)"))
+    got = (one_l[0] + path_l[0], one_l[1] + path_l[1])
+    print(f"parallel: phase in {time.perf_counter() - t_phase:.1f} s; "
+          f"launches fwd/bwd {got} ((a) {one_l}, (b) {tuple(path_l)})")
+    return got, fwd_recs, bwd_recs
+
+
 def main(argv) -> int:
     import torch
 
@@ -1417,6 +1947,8 @@ def main(argv) -> int:
     from gpz_tpu_torch.model import _make_dataset, _moments_batch
     from gpz_tpu_torch.ops import vc_phi
     sys.path.insert(0, os.path.join(ROOT, "tests"))
+    if argv[:1] == ["--parallel-rank"]:
+        return parallel_rank(int(argv[1]), argv[2])
     from make_torch_port_golden import (
         GOLDEN_TOL, MISSING_PATTERNS, MISSING_ROWS, MISSING_TOL,
         OBJECTIVE_ROWS, OUTPUTS, POINTS, TRACE_ITERS, TRAIN_TOL,
@@ -2040,6 +2572,9 @@ def main(argv) -> int:
     new_paths["bench"] = phase_bench(smi)
     new_paths["inference"], inf_fwd, inf_bwd = phase_inference(
         model64, mags, errs, z, rows, data_tr, flat_t, unravel_t, fitted.cfg)
+    new_paths["parallel"], par_fwd, par_bwd = phase_parallel(
+        model, X, Y, psi, tr, va, data_tr, trace["f"],
+        train_s / evals * 1e3)
     new_fwd = sum(f for f, _ in new_paths.values())
     new_bwd = sum(b for _, b in new_paths.values())
 
@@ -2054,8 +2589,8 @@ def main(argv) -> int:
                              **{k_: f for k_, (f, _) in new_paths.items()}},
         "max_abs_err": max(c["max_abs_err"] for c in (
             fwd_big, *serve_cases.values(), *mix_cases.values(),
-            *inf_fwd.values())),
-        "sites": {**serve_cases, **mix_cases, **inf_fwd},
+            *inf_fwd.values(), *par_fwd.values())),
+        "sites": {**serve_cases, **mix_cases, **inf_fwd, **par_fwd},
         "shape": [n_, m_, d_, "float64"],
         "ms": fwd_big["ms"], "plain_ms": fwd_big["plain_ms"],
         **{k_: v for k_, v in bound("fwd", n_, m_, d_, "float64").items()
@@ -2068,9 +2603,9 @@ def main(argv) -> int:
         "launches_by_path": {"serve": 0, "train": path_bwd,
                              "missing_serve": 0,
                              **{k_: b for k_, (_, b) in new_paths.items()}},
-        "max_abs_err": max(bwd_errs + [c["max_abs_err"]
-                                       for c in inf_bwd.values()]),
-        "sites": inf_bwd,
+        "max_abs_err": max(bwd_errs + [c["max_abs_err"] for c in (
+            *inf_bwd.values(), *par_bwd.values())]),
+        "sites": {**inf_bwd, **par_bwd},
         "shape": [n_, m_, d_, "float64"],
         **bwd_rec["70000x100"],
         **{k_: v for k_, v in bound("bwd", n_, m_, d_, "float64").items()

@@ -25,7 +25,8 @@ class Dataset:
           None | (n, d) diagonal per-row | (n, d, d) full covariance per-row
     omega (n,)    cost-sensitive sample weights (ref GPz/getOmega.m); rows
                   with omega == 0 contribute exactly zero to every reduction
-                  in the objective.
+                  in the objective, which is how padding a row shard
+                  (pad_dataset) stays exact.
     """
 
     X: torch.Tensor
@@ -51,3 +52,28 @@ class Dataset:
             Y=None if self.Y is None else self.Y[idx],
             psi=None if self.psi is None else self.psi[idx],
         )
+
+
+def pad_dataset(data: Dataset, target_n: int) -> Dataset:
+    """Pad to `target_n` rows with omega=0 rows, which add exact zeros to
+    every reduction of the objective (gpz_tpu.dataset.pad_dataset)."""
+    n = data.n
+    if n == target_n:
+        return data
+    if n > target_n:
+        raise ValueError(f"cannot pad {n} rows down to {target_n}")
+    pad = target_n - n
+
+    def pad0(x):
+        if x is None:
+            return None
+        return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+
+    return Dataset(
+        X=pad0(data.X),
+        # padded rows are marked fully observed so PHI stays finite
+        mask=torch.cat([data.mask, data.mask.new_ones((pad, data.d))]),
+        omega=pad0(data.omega),
+        Y=pad0(data.Y),
+        psi=pad0(data.psi),
+    )

@@ -22,8 +22,12 @@ Design, as gpz_tpu's:
 
 Randomness comes from a torch.Generator on the chains' device (gpz_tpu's
 `key`); each step function takes its random draws as arguments. Everything
-runs on the device of x0. Pooling over the chains of several devices
-(`axis_name`) waits for the port's parallel slice.
+runs on the device of x0. With `axis_name`, a torch.distributed process
+group (gpz_tpu's mesh axis name), the collective warmup pools its statistics
+over the chains of every rank of the group as well (parallel.make_mesh's
+restart group, for example): each rank runs its own chains from its own
+generator, and the ranks meet only at the pooled statistics, at the same
+transitions on every rank.
 """
 
 from __future__ import annotations
@@ -32,15 +36,16 @@ import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 
-def _refuse_axis(axis_name):
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"axis_name={axis_name!r} pools statistics over chains sharded "
-            "across devices, which waits for the port's parallel slice "
-            "(gpz_tpu.parallel); call with axis_name=None to pool over the "
-            "chains of this process")
+def _check_axis(axis_name):
+    if axis_name is not None and not isinstance(axis_name,
+                                                dist.ProcessGroup):
+        raise TypeError(
+            f"axis_name takes a torch.distributed process group (for "
+            f"example mesh.get_group(RESTART_AXIS) of "
+            f"gpz_tpu_torch.parallel), got {axis_name!r}")
 
 
 def _value_and_grad(logp_fn: Callable, x: torch.Tensor):
@@ -115,22 +120,28 @@ def _da_update(s: _DAState, accept_prob, target) -> _DAState:
 
 
 def _pool_scalar(a: torch.Tensor, axis_name=None) -> torch.Tensor:
-    """Mean of a per-chain statistic over all chains of the batch (the
-    leading axis): the pooling of collective warmup adaptation."""
-    _refuse_axis(axis_name)
-    return torch.mean(a, dim=0)
+    """Mean of a per-chain statistic over all chains (the leading axis), and
+    over the ranks of the process group `axis_name` when given: the pooling
+    of collective warmup adaptation (gpz_tpu's pmean). Every rank holds as
+    many chains, so the mean of the ranks' means is the mean over all."""
+    out = torch.mean(a, dim=0)
+    if axis_name is not None:
+        dist.all_reduce(out, group=axis_name)
+        out = out / dist.get_world_size(axis_name)
+    return out
 
 
 def _run_chains(step, logp_fn, x_init, *, collective, num_warmup,
-                num_samples, target_accept, eps0):
+                num_samples, target_accept, eps0, axis_name=None):
     """Two warmup windows, then sampling, for all chains at once.
 
     step(x, logp, grad, eps (C,), inv_mass (C, p)) -> (x, logp, grad,
     accept_stat (C,), aux), aux a tuple of (C,) per-step values. With
     `collective` the step size and mass matrix are one for all chains,
     adapted from statistics pooled over them; otherwise each chain has its
-    own. Returns (samples (C, S, p), accept_rate (C,), eps_final, aux
-    stacked over the draws, each (S, C)).
+    own; `axis_name` pools the collective statistics over its ranks too.
+    Returns (samples (C, S, p), accept_rate (C,), eps_final, aux stacked
+    over the draws, each (S, C)).
     """
     C, p = x_init.shape
     x = x_init
@@ -138,7 +149,8 @@ def _run_chains(step, logp_fn, x_init, *, collective, num_warmup,
     shape = () if collective else (C,)
     da = _da_init(torch.full(shape, eps0, dtype=x.dtype, device=x.device))
     inv_mass = torch.ones(shape + (p,), dtype=x.dtype, device=x.device)
-    pool = _pool_scalar if collective else (lambda a: a)
+    pool = ((lambda a: _pool_scalar(a, axis_name)) if collective
+            else (lambda a: a))
     half = num_warmup // 2
 
     def advance(x, logp, grad, eps, inv_mass):
@@ -193,13 +205,17 @@ def collective_mcmc(step, logp_fn, x_init, *, num_warmup, num_samples,
     accept_stat (C,), aux), aux a (possibly empty) tuple of (C,) per-step
     values; the step draws its own randomness.
 
+    `axis_name`: a process group over whose ranks' chains the statistics
+    are pooled as well (the same on every rank afterwards).
+
     Returns (samples (C, S, p), accept_rate (C,), eps_final (), aux_stats)
     with aux_stats a tuple of (C,)-shaped per-chain means of each aux value.
     """
-    _refuse_axis(axis_name)
+    _check_axis(axis_name)
     samples, accept, eps_final, aux = _run_chains(
         step, logp_fn, x_init, collective=True, num_warmup=num_warmup,
-        num_samples=num_samples, target_accept=target_accept, eps0=eps0)
+        num_samples=num_samples, target_accept=target_accept, eps0=eps0,
+        axis_name=axis_name)
     aux_stats = tuple(a.to(samples.dtype).mean(0) for a in aux)
     return samples, accept, eps_final, aux_stats
 
@@ -277,9 +293,10 @@ def hmc_sample(
     (chains,) and step_size, (chains,) or, with `collective_adapt=True`, one
     shared () step size: all chains then co-adapt ONE step size and ONE
     diagonal mass matrix from acceptance/variance statistics pooled across
-    the chains. `axis_name` (pooling across devices) must be None.
+    the chains, and with `axis_name` (a torch.distributed process group)
+    across the chains of its ranks too.
     """
-    _refuse_axis(axis_name)
+    _check_axis(axis_name)
     C, p = num_chains, x0.shape[0]
     kw = dict(dtype=x0.dtype, device=x0.device, generator=generator)
     x_init = x0[None, :] + init_jitter * torch.randn((C, p), **kw)
@@ -295,7 +312,7 @@ def hmc_sample(
     samples, accept, eps_final, _ = _run_chains(
         step, logp_fn, x_init, collective=collective_adapt,
         num_warmup=num_warmup, num_samples=num_samples,
-        target_accept=target_accept, eps0=eps0)
+        target_accept=target_accept, eps0=eps0, axis_name=axis_name)
     return samples, {"accept_rate": accept, "step_size": eps_final}
 
 

@@ -30,7 +30,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from gpz_tpu_torch.inference.mcmc import (
-    _leapfrog, _refuse_axis, _run_chains, collective_mcmc,
+    _check_axis, _leapfrog, _run_chains, collective_mcmc,
 )
 
 _DIVERGENCE = 1000.0
@@ -246,9 +246,10 @@ def nuts_sample(
     (per chain; with `collective_adapt`, as gpz_tpu reports it, the sum over
     chains of each chain's fraction of divergent draws). `collective_adapt`
     co-adapts ONE shared step size and mass matrix from chain-pooled
-    statistics (see mcmc.collective_mcmc). `axis_name` must be None.
+    statistics (see mcmc.collective_mcmc), with `axis_name` (a
+    torch.distributed process group) over the chains of its ranks too.
     """
-    _refuse_axis(axis_name)
+    _check_axis(axis_name)
     C, p = num_chains, x0.shape[0]
     kw = dict(dtype=x0.dtype, device=x0.device, generator=generator)
     x_init = x0[None, :] + init_jitter * torch.randn((C, p), **kw)
@@ -267,7 +268,7 @@ def nuts_sample(
                target_accept=target_accept, eps0=eps0)
     if collective_adapt:
         samples, accept, eps_final, (mean_depth, divs) = collective_mcmc(
-            step, logp_fn, x_init, **run)
+            step, logp_fn, x_init, axis_name=axis_name, **run)
         divergences = torch.sum(divs)
     else:
         samples, accept, eps_final, (depths, divs) = _run_chains(

@@ -209,11 +209,13 @@ def nlog_ml(
 
 
 def nlog_ml_batched(flat: torch.Tensor, unravel: Callable, data: Dataset,
-                    cfg: ModelConfig, complete: bool = False) -> torch.Tensor:
+                    cfg: ModelConfig, complete: bool = False, n_eff=None,
+                    reducer: Callable = _identity) -> torch.Tensor:
     """nlog_ml of B parameter sets at once: flat (B, p), a flat parameter
     vector per row (`GPzParams.flatten`'s layout, read by `unravel`), gives
     the (B,) nlml on the same data, what vmapping gpz_tpu's nlog_ml over
-    flat vectors gives.
+    flat vectors gives. `n_eff` and `reducer` as in nlog_ml: the real row
+    count of a padded or row-sharded `data`, and the sum over shards.
 
     The design matrix joins the B sets' bases into one (n, B * m) call, so
     on complete rows with full psi the kernel pair launches once forward and
@@ -223,8 +225,9 @@ def nlog_ml_batched(flat: torch.Tensor, unravel: Callable, data: Dataset,
     evidence terms. The sets share nothing, so autograd's gradient of
     `nlml.sum()` in flat is each row's own gradient.
     """
-    return _neg_log_ml(unravel(flat), data, cfg, data.n, complete,
-                       _identity, 1)[0]
+    return _neg_log_ml(unravel(flat), data, cfg,
+                       data.n if n_eff is None else n_eff, complete, reducer,
+                       1)[0]
 
 
 def posterior(

@@ -91,8 +91,10 @@ def test_best_and_last_equal_gpz_tpu(fitted):
 
 
 def test_mesh_raises_and_names_the_parallel_slice():
+    """mesh takes a gpz_tpu_torch.parallel mesh; anything else raises and
+    names it (the mesh itself: tests/test_torch_parallel_mesh.py)."""
     X, Y = problem()[:2]
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(TypeError, match="parallel"):
         gpz_tpu_torch.fit_ensemble(X, Y, "VL", M, mesh=object(),
                                    device="cpu", **kwargs("VL"))
 

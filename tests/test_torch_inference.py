@@ -255,9 +255,12 @@ def test_collective_warmup_pools_step_size_and_mass():
 @pytest.mark.parametrize("call", ["hmc_sample", "nuts_sample",
                                   "collective_mcmc"])
 def test_axis_name_raises(call):
+    """axis_name takes a torch.distributed process group, not gpz_tpu's
+    mesh axis name: a name raises and says what to pass (pooling over the
+    ranks of a group: tests/test_torch_parallel_adapt.py)."""
     logp = lambda x: -torch.sum(x**2, -1)  # noqa: E731
     x0 = torch.zeros(2, dtype=F64)
-    with pytest.raises(NotImplementedError, match="parallel slice"):
+    with pytest.raises(TypeError, match="process group"):
         if call == "collective_mcmc":
             tmcmc.collective_mcmc(None, logp, x0[None], num_warmup=2,
                                   num_samples=2, target_accept=0.8, eps0=0.1,
