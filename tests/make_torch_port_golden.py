@@ -1,9 +1,11 @@
 """Regenerate the golden files that hold gpz_tpu_torch against gpz_tpu where
 JAX is absent (chip_smoke.py on the GPU).
 
-    JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py [photoz] [train] [missing] [inference]
+    JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py [photoz] [train] [missing] [inference] [demos]
 
-With no argument all four files are written.
+With no argument all five files are written. `... make_torch_port_golden.py
+divergence [small|full]` writes nothing: it prints where demo_photoz's
+training trajectories part (`photoz_divergence`).
 
 tests/data/torch_port_golden_photoz.npz holds gpz_tpu.predict's outputs (mu, sigma, nu, beta_i, gamma) for
 the first 256 test rows of the photo-z parity data
@@ -77,12 +79,33 @@ INFERENCE_SEED is chosen so that no accept or take decision of the two
 transitions lies within DECISION_MARGIN of its threshold (asserted when the
 file is written), so that rounding differences of the order of the
 tolerances cannot flip one.
+
+tests/data/torch_port_golden_demos.npz holds what the three JAX demo scripts
+(demos/demo_sinc.py, demo_2d.py, demo_photoz.py) print, each run as a
+process with `--cpu --dtype float64` and the arguments of DEMO_SIZES: at
+"small" (the CPU tests' sizes) and at "full" (the scripts' defaults; held
+against the port on the GPU by chip_smoke.py). matplotlib is hidden from
+the scripts, so demo_sinc.py writes no plot; GPZ_MIX_DTYPE is float64, the
+port's mixture dtype. For each demo and size:
+
+  <demo>.<size>.argv        the script's arguments
+  <demo>.<size>.stdout      everything it printed
+  <demo>.<size>.printed     its result numbers as printed (strings, in the
+                            order of DEMO_NUMBERS[demo]; the band of a
+                            comparison follows the printed digits)
+  <demo>.<size>.values      the same as float64
+  <demo>.<size>.seconds     the process's wall clock
+
+(benchmarks/convergence_target.json keeps no trace of its run, so there is
+no time_to_target of it to keep; tests/test_torch_bench_convergence.py holds
+the port's time_to_target to bench_convergence.py's on seeded traces.)
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import re
 import sys
 
 import numpy as np
@@ -626,6 +649,159 @@ def load_golden_inference() -> dict:
         return {k: z[k] for k in z.files}
 
 
+GOLDEN_DEMOS = os.path.join(HERE, "data", "torch_port_golden_demos.npz")
+DEMOS = ("sinc", "2d", "photoz")
+#: the numbers each demo prints after training, in print order
+DEMO_NUMBERS = {
+    "sinc": ("rmse", "mll", "spread_gap", "spread_support"),
+    "2d": ("predicted_missing_y", "predicted_missing_x",
+           "reference_missing_y", "reference_missing_x"),
+    "photoz": ("rmse", "mll", "fr15", "fr05", "bias"),
+}
+#: every run's arguments beyond `--cpu --dtype float64`: "small" for the CPU
+#: tests, "full" the scripts' own defaults. demo_photoz's small problem
+#: (600 training rows, m=10) amplifies rounding ~1e4-fold per iteration from
+#: iteration 7 on: gpz_tpu against itself with P scaled by (1 + 1e-15)
+#: differs in f by 5e-10 at iteration 7, 6e-6 at 8 and 9e-4 at 15, and the
+#: port against gpz_tpu by 4e-10, 5e-6 and 8e-4. Its small run stops at
+#: iteration 7, where any two float64 pipelines still agree to ~1e-9
+DEMO_SIZES = {
+    "sinc": {"small": ("--n", "1000", "--m", "10", "--max-iter", "15"),
+             "full": ()},
+    "2d": {"small": ("--m", "8", "--max-iter", "15"), "full": ()},
+    "photoz": {"small": ("--n", "3000", "--m", "10", "--max-iter", "7"),
+               "full": ()},
+}
+DEMO_COMMON = ("--dtype", "float64")
+_NUMBER = re.compile(r"-?\d+\.\d+")
+# runs a demo script as __main__ with matplotlib hidden: demo_sinc.py then
+# takes its ImportError branch and writes no plot beside itself
+_RUN_SCRIPT = ("import runpy, sys; sys.modules['matplotlib'] = None; "
+               "sys.argv = sys.argv[1:]; "
+               "runpy.run_path(sys.argv[0], run_name='__main__')")
+
+
+def result_lines(stdout: str) -> list:
+    """The lines a demo prints after its training tables: everything after
+    the last trace summary ("\t[N iters, M evals, status=S]")."""
+    lines = stdout.splitlines()
+    last = max((i for i, ln in enumerate(lines)
+                if ln.startswith("\t[") and ln.endswith("]")), default=-1)
+    return lines[last + 1:]
+
+
+def printed_numbers(stdout: str) -> list:
+    """The result numbers of a demo's output, as printed (strings)."""
+    return [t for ln in result_lines(stdout) for t in _NUMBER.findall(ln)]
+
+
+def line_layout(lines) -> list:
+    """Lines with every printed number replaced by '#'."""
+    return [_NUMBER.sub("#", ln) for ln in lines]
+
+
+def printed_band(printed: str) -> float:
+    """Two units of a printed number's last digit."""
+    return 2.0 * 10.0 ** -len(printed.split(".")[1])
+
+
+def _run_demo(demo, size):
+    import subprocess
+    import tempfile
+    import time
+
+    script = os.path.join(ROOT, "demos", f"demo_{demo}.py")
+    argv = ("--cpu",) + DEMO_COMMON + DEMO_SIZES[demo][size]
+    env = dict(os.environ, JAX_PLATFORMS="cpu", GPZ_MIX_DTYPE="float64")
+    with tempfile.TemporaryDirectory() as cwd:
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", _RUN_SCRIPT, script,
+                              *argv], cwd=cwd, env=env, capture_output=True,
+                             text=True, check=True)
+        seconds = time.perf_counter() - t0
+    printed = printed_numbers(res.stdout)
+    assert len(printed) == len(DEMO_NUMBERS[demo]), (demo, size, printed)
+    print(f"demo_{demo} {size} {' '.join(argv)}: {seconds:.1f} s, "
+          f"{dict(zip(DEMO_NUMBERS[demo], printed))}", flush=True)
+    p = f"{demo}.{size}"
+    return {f"{p}.argv": np.array(argv), f"{p}.stdout": np.array(res.stdout),
+            f"{p}.printed": np.array(printed),
+            f"{p}.values": np.array([float(t) for t in printed]),
+            f"{p}.seconds": np.array(seconds)}
+
+
+def jax_demos():
+    """Every demo at every size, run concurrently as processes."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(DEMOS) * 2) as pool:
+        runs = [pool.submit(_run_demo, demo, size) for demo in DEMOS
+                for size in ("small", "full")]
+        return {k: v for r in runs for k, v in r.result().items()}
+
+
+def photoz_divergence(size: str):
+    """Print where demo_photoz's training trajectories part (`python
+    tests/make_torch_port_golden.py divergence [small|full]`; writes
+    nothing): gpz_tpu's trace against gpz_tpu's from P scaled by
+    (1 + 1e-15), and against gpz_tpu_torch's on the CPU, all float64 on the
+    demo's data at its DEMO_SIZES (rows, bases, iterations), the small size
+    run on to 15 iterations, past the 7 its golden run stops at. The small
+    size takes seconds, the full one about half an hour."""
+    sys.path.insert(0, ROOT)
+    import torch
+    import gpz_tpu
+    import gpz_tpu_torch
+    from gpz_tpu import datautils
+    from gpz_tpu.data import synthetic_sdss
+
+    n, m, max_iter = {"small": (3000, 10, 15), "full": (60_000, 100, 500)}[
+        size]
+    mags, errs, z = synthetic_sdss(n=n, seed=SEED)
+    omega = datautils.get_omega(z, "normal", 0.1)
+    psi = errs**2
+    tr, va, _ = datautils.split(n, 0.2, 0.2, 0.6,
+                                np.random.default_rng(SEED))
+    kw = dict(omega=omega, training=tr, heteroscedastic=True, psi=psi,
+              seed=SEED, dtype="float64")
+    tkw = dict(omega=omega, training=tr, validation=va, psi=psi,
+               max_iter=max_iter, max_attempts=50, verbose=False)
+
+    def trace(model):
+        fit = model.fit_info
+        return np.asarray(fit["trace"]["f"])[: fit["iterations"] + 1]
+
+    m0 = gpz_tpu.init(mags, z, "VC", m, **kw)
+    p0 = m0.last.params
+    m1 = dataclasses.replace(m0, last=dataclasses.replace(
+        m0.last, params=dataclasses.replace(p0, P=p0.P * (1 + 1e-15))))
+    torch.set_num_threads(os.cpu_count() or 1)
+    traces = {
+        "gpz_tpu": trace(gpz_tpu.train(m0, mags, z, **tkw)),
+        "gpz_tpu, P*(1+1e-15)": trace(gpz_tpu.train(m1, mags, z, **tkw)),
+        "gpz_tpu_torch": trace(gpz_tpu_torch.train(gpz_tpu_torch.init(
+            mags, z, "VC", m, device="cpu", **kw), mags, z, **tkw)),
+    }
+    ref = traces["gpz_tpu"]
+    rtol = TRAIN_TOL["trace.f"][0]
+    for name, f in traces.items():
+        k = min(len(f), len(ref))
+        rel = np.abs(f[:k] - ref[:k]) / np.abs(ref[:k])
+        parts = np.nonzero(rel > rtol)[0]
+        at = {i: float(abs(f[i] - ref[i])) for i in (5, 7, 8, 10, 15, 20)
+              if i < k}
+        print(f"photoz {size}: {name}: {len(f) - 1} iterations, best f "
+              f"{f.min():.8f}; first iteration beyond {rtol:g} relative "
+              f"of gpz_tpu's: {int(parts[0]) if len(parts) else None}; "
+              "|f - gpz_tpu's| at "
+              + ", ".join(f"{i}: {d:.1e}" for i, d in at.items()))
+
+
+def load_golden_demos() -> dict:
+    with np.load(GOLDEN_DEMOS) as z:
+        return {k: z[k] for k in z.files}
+
+
 def main(which):
     os.makedirs(os.path.dirname(GOLDEN), exist_ok=True)
     if "photoz" in which:
@@ -648,7 +824,14 @@ def main(which):
                             **jax_inference())
         print(f"wrote {GOLDEN_INFERENCE} "
               f"({os.path.getsize(GOLDEN_INFERENCE)} bytes)")
+    if "demos" in which:
+        np.savez_compressed(GOLDEN_DEMOS, **jax_demos())
+        print(f"wrote {GOLDEN_DEMOS} ({os.path.getsize(GOLDEN_DEMOS)} bytes)")
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ["photoz", "train", "missing", "inference"])
+    if sys.argv[1:2] == ["divergence"]:
+        photoz_divergence(sys.argv[2] if len(sys.argv) > 2 else "small")
+    else:
+        main(sys.argv[1:] or ["photoz", "train", "missing", "inference",
+                              "demos"])

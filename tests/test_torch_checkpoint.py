@@ -243,7 +243,9 @@ def test_import_leaves_jax_out():
         "import sys, gpz_tpu_torch, gpz_tpu_torch.data, gpz_tpu_torch.ops, "
         "gpz_tpu_torch.metrics, gpz_tpu_torch.cli, gpz_tpu_torch.ensemble, "
         "gpz_tpu_torch.native, gpz_tpu_torch.optim, gpz_tpu_torch.bench, "
-        "gpz_tpu_torch.inference, gpz_tpu_torch.parallel\n"
+        "gpz_tpu_torch.inference, gpz_tpu_torch.parallel, "
+        "gpz_tpu_torch.bench_convergence, gpz_tpu_torch.demos.demo_sinc, "
+        "gpz_tpu_torch.demos.demo_2d, gpz_tpu_torch.demos.demo_photoz\n"
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'gpz_tpu'))\n"
         "assert not bad, bad\n"
