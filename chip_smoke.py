@@ -93,11 +93,17 @@ Phases, each printing its own lines; any failure exits non-zero:
                the native read_csv equals np.loadtxt bit for bit and the
                native library is in use. Times of read, train and predict
 13. ensemble   fit_ensemble on phase 7's problem: VC m=100, 4 restarts of
-               25 iterations, seed 1, float64. Scores finite, best_restart
-               their argmax, per-restart iterations and evaluations; the best
-               restart's parameters within RESTART_TOL of that restart trained
-               alone by minimize from init(seed=1 + r); launches the sum over
-               the restarts. Seconds per restart
+               25 iterations, seed 1, float64, as one lockstep
+               minimize_batched (each round evaluates the running restarts
+               in one (70,000, A x 100) launch of the pair). Scores finite,
+               best_restart their argmax; every restart trained alone by
+               minimize from init(seed=1 + r) (the restarts in turn): equal
+               iterations, evaluations and status, x and x_best within
+               RESTART_TOL; the pair's launches and their shapes equal what
+               the lanes imply (lockstep_sites); seconds per restart
+               lockstep and in turn, rounds, launches per round, host syncs
+               and launches under the profiler, peak memory; the pair
+               against plain at every shape the lockstep run launched
 14. host-lbfgs minimize_host (the native two-loop recursion) for 25 iterations
                on nlog_ml at 70,000 x 100 through a closure that copies x in
                and (f, g) out as float64 NumPy: native library in use, f
@@ -364,7 +370,7 @@ def compare_kernel(name, args, tol, plain_timing=None):
     from gpz_tpu_torch.ops import vc_phi
 
     got = vc_phi.vc_lnphi_complete(*args)
-    want = vc_phi.vc_lnphi_plain(*args)
+    want = vc_phi.vc_lnphi_plain(*args[:5])
     torch.cuda.synchronize()
     check(got.shape == want.shape, f"{name}: shape {tuple(got.shape)}")
     fin = torch.isfinite(want)
@@ -378,7 +384,7 @@ def compare_kernel(name, args, tol, plain_timing=None):
     rec = {
         "max_abs_err": max_abs,
         "ms": median_ms(lambda: vc_phi.vc_lnphi_complete(*args)),
-        "plain_ms": median_ms(lambda: vc_phi.vc_lnphi_plain(*args),
+        "plain_ms": median_ms(lambda: vc_phi.vc_lnphi_plain(*args[:5]),
                               **(plain_timing or {})),
     }
     print(f"kernel {name}: {shape_line(args)} max_abs_err={max_abs:.3e} "
@@ -405,16 +411,16 @@ def autograd_through_plain(X, psi, P, Sigma, g):
     return dP, 0.5 * (dS + dS.transpose(1, 2))
 
 
-def compare_backward(name, args, g, tol):
-    """Backward kernel vs the plain backward and vs autograd through the
-    plain forward, and twice against itself; returns the worst max abs
-    error."""
+def compare_backward(name, args, g, tol, sets=1):
+    """Backward kernel (its sums planned for `sets` runs of bases) vs the
+    plain backward and vs autograd through the plain forward, and twice
+    against itself; returns the worst max abs error."""
     import torch
     from gpz_tpu_torch.ops import vc_phi
 
     X, psi, P, Sigma = args[:4]
-    got = vc_phi.vc_lnphi_bwd(X, psi, P, Sigma, g)
-    again = vc_phi.vc_lnphi_bwd(X, psi, P, Sigma, g)
+    got = vc_phi.vc_lnphi_bwd(X, psi, P, Sigma, g, sets)
+    again = vc_phi.vc_lnphi_bwd(X, psi, P, Sigma, g, sets)
     plain = vc_phi.vc_lnphi_bwd_plain(X, psi, P, Sigma, g)
     auto = autograd_through_plain(X, psi, P, Sigma, g)
     torch.cuda.synchronize()
@@ -451,7 +457,9 @@ def recording(module: str, name: str, sites: dict):
     def record(*args):
         shape = (args[0].shape[0], args[2].shape[0])
         if shape not in sites:
-            sites[shape] = [0, tuple(a.detach().clone() for a in args)]
+            sites[shape] = [0, tuple(
+                a.detach().clone() if hasattr(a, "detach") else a
+                for a in args)]
         sites[shape][0] += 1
         return real(*args)
 
@@ -460,6 +468,12 @@ def recording(module: str, name: str, sites: dict):
         yield sites
     finally:
         setattr(mod, name, real)
+
+
+def moved(args, device) -> tuple:
+    """Recorded arguments with their tensors on `device` (the sets count of
+    a batched call stays as it is)."""
+    return tuple(a.to(device) if hasattr(a, "to") else a for a in args)
 
 
 @contextlib.contextmanager
@@ -487,7 +501,8 @@ def compare_sites(prefix, sites, per, key="launches_per_request"):
     recs = {}
     for (n, bases), (count, args) in sites.items():
         name = f"{prefix}-{n}x{bases}"
-        slow = dict(trials=3, calls=2, warmup=1) if bases > 1000 else None
+        slow = (dict(trials=3, calls=2, warmup=1)
+                if bases > 1000 or n * bases > 1e7 else None)
         rec = compare_kernel(name, args, KERNEL_TOL["trained"],
                              plain_timing=slow)
         b = bound("fwd", n, bases, args[0].shape[1], "float64")
@@ -513,10 +528,11 @@ def compare_bwd_sites(prefix, sites, per):
         name = f"{prefix}-bwd-{n}x{bases}"
         d = args[0].shape[1]
         rec = {"max_abs_err": compare_backward(name, args, args[4],
-                                               KERNEL_BWD_TOL["trained"]),
+                                               KERNEL_BWD_TOL["trained"],
+                                               *args[5:]),
                "ms": median_ms(lambda: vc_phi.vc_lnphi_bwd(*args), **few),
-               "plain_ms": median_ms(lambda: vc_phi.vc_lnphi_bwd_plain(*args),
-                                     **few)}
+               "plain_ms": median_ms(
+                   lambda: vc_phi.vc_lnphi_bwd_plain(*args[:5]), **few)}
         b = bound("bwd", n, bases, d, "float64")
         rec.update(shape=[n, bases], launches=count, bound_ms=b["bound_ms"])
         print(f"site {name} d={d} f64: {count} launches per {per}; kernel "
@@ -861,83 +877,208 @@ def phase_cli(workdir: str) -> dict:
     return {"cli_train": train_l, "cli_predict": predict_l}
 
 
+def lockstep_sites(results, n_train, n_valid, m, restarts) -> tuple:
+    """({(rows, bases): launches} forward, the same backward) that one
+    fit_ensemble implies from its lanes' MinimizeResults (phase 13): each
+    restart's init posterior and the chosen restart's `last` and `best`
+    resolved (posterior and prior each) at (n_train, m); evaluation round e
+    at (n_train, A m), A the lanes still running at e (those with fun_evals
+    >= e), forward and backward; one validation score per round in which A'
+    lanes end an iteration (an iteration ends where its trace's fevals
+    reads e), at (n_valid, A' m). Also the number of rounds."""
+    fwd, bwd = {(n_train, m): restarts + 4}, {}
+    rounds = max(r.fun_evals for r in results)
+    for e in range(1, rounds + 1):
+        active = sum(r.fun_evals >= e for r in results)
+        scored = sum(int(e in r.trace["fevals"]) for r in results)
+        for sites in (fwd, bwd):
+            key = (n_train, active * m)
+            sites[key] = sites.get(key, 0) + 1
+        if scored:
+            key = (n_valid, scored * m)
+            fwd[key] = fwd.get(key, 0) + 1
+    return fwd, bwd, rounds
+
+
 def phase_ensemble(X, Y, psi, tr, va) -> tuple:
-    """13. fit_ensemble, 4 restarts of VC m=100 on the training problem; the
-    best restart against itself trained alone; (fwd, bwd) launches."""
+    """13. fit_ensemble, 4 restarts of VC m=100 on the training problem, as
+    one lockstep minimize_batched; every restart against itself trained
+    alone by minimize (the restarts in turn); the kernel pair against plain
+    at every shape the lockstep run launched. Returns ((fwd, bwd) launches,
+    forward site records, backward site records)."""
     import torch
     import gpz_tpu_torch
     from gpz_tpu_torch import datautils
+    from gpz_tpu_torch import ensemble as ensemble_mod
     from gpz_tpu_torch import model as model_mod
     from gpz_tpu_torch.objective import holdout_metrics
     from gpz_tpu_torch.optim import minimize
 
-    reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    model, info = gpz_tpu_torch.fit_ensemble(
-        X, Y, "VC", TRAIN_M, n_restarts=RESTARTS, training=tr,
-        validation=va, psi=psi, max_iter=TRAIN_ITERS, seed=1,
-        dtype="float64")
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    got = launches()
+    lanes = []
+    batched = ensemble_mod.minimize_batched
+
+    def captured(*args, **kw):
+        lanes.extend(batched(*args, **kw))
+        return lanes
+
+    fwd_sites, bwd_sites = {}, {}
+    ensemble_mod.minimize_batched = captured
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with pair_recorded(fwd_sites, bwd_sites):
+            model, info = gpz_tpu_torch.fit_ensemble(
+                X, Y, "VC", TRAIN_M, n_restarts=RESTARTS, training=tr,
+                validation=va, psi=psi, max_iter=TRAIN_ITERS, seed=1,
+                dtype="float64")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = launches()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        ensemble_mod.minimize_batched = batched
     scores, best = info["restart_scores"], info["best_restart"]
     its, evals = info["iterations"], info["fun_evals"]
+    check(len(lanes) == RESTARTS, f"ensemble: {len(lanes)} lanes")
     check(np.isfinite(scores).all() and scores.shape == (RESTARTS,)
           and best == int(np.argmax(scores)), f"ensemble: scores {scores}, "
           f"best restart {best}")
-    check(its.shape == evals.shape == (RESTARTS,), "ensemble: iterations "
-          "and evaluations are not per-restart arrays")
-    # per restart: init's posterior, then the restart's training; the chosen
-    # restart's `last` and `best` are resolved once
-    want = (RESTARTS + int(evals.sum()) + int(its.sum()) + RESTARTS + 4,
-            int(evals.sum()))
+    check(its.shape == evals.shape == (RESTARTS,)
+          and its.tolist() == [r.iterations for r in lanes]
+          and evals.tolist() == [r.fun_evals for r in lanes],
+          "ensemble: fit_info's iterations and evaluations are not the "
+          "lanes'")
+    n_tr, n_va = int(tr.sum()), int(va.sum())
+    want_fwd, want_bwd, rounds = lockstep_sites(lanes, n_tr, n_va, TRAIN_M,
+                                                RESTARTS)
+    want = (sum(want_fwd.values()), sum(want_bwd.values()))
+    check(site_counts(fwd_sites) == want_fwd
+          and site_counts(bwd_sites) == want_bwd, "ensemble: the pair "
+          f"launched at {site_counts(fwd_sites)} forward and "
+          f"{site_counts(bwd_sites)} backward; the lanes imply {want_fwd} "
+          f"and {want_bwd}")
+    check(got == want, f"ensemble: launches fwd/bwd {got}, the lanes imply "
+          f"{want}")
 
-    # the best restart trained alone, from its own init
-    alone = gpz_tpu_torch.init(X, Y, "VC", TRAIN_M, psi=psi, training=tr,
-                               seed=1 + best, dtype="float64")
-    cfg = alone.cfg
-    Xn = (X - alone.muX[None, :]) / alone.sdX[None, :]
-    Yc = Y[:, None] - alone.muY[None, :]
-    psi_c = datautils.fix_psi(psi, len(Y), alone.sdX, True)
-    dev = alone.last.params.P.device
-    data_tr = model_mod._make_dataset(Xn, Yc, psi_c, np.ones(len(Y)), tr,
-                                      torch.float64, dev)
-    data_va = model_mod._make_dataset(Xn, Yc, psi_c, np.ones(len(Y)), va,
-                                      torch.float64, dev)
-    flat0, unravel = alone.last.params.flatten()
-
-    def score_fn(flat, aux):
-        rmse, ll = holdout_metrics(unravel(flat), aux.w, data_va, cfg,
-                                   complete=True)
-        return ll, {"valid_rmse": rmse, "valid_ll": ll}
-
-    res = minimize(model_mod._objective(unravel, data_tr, cfg, True), flat0,
-                   max_iter=TRAIN_ITERS, score_fn=score_fn)
+    # every restart alone, from its own init: the restarts in turn
     rtol, atol = RESTART_TOL
-    diffs = {}
-    for which, want_flat in (("best", res.x_best), ("last", res.x)):
-        flat = getattr(model, which).params.flatten()[0]
-        err = (flat - want_flat).abs()
-        diffs[which] = float(err.max())
-        check(bool((err <= atol + rtol * want_flat.abs()).all()),
-              f"ensemble: the {which} parameters of restart {best} differ "
-              f"from the restart trained alone by {diffs[which]:.3e}")
-    check(res.iterations == its[best] and res.fun_evals == evals[best]
-          and abs(res.best_score - scores[best])
-          <= atol + rtol * abs(scores[best]), "ensemble: restart "
-          f"{best} alone took {res.iterations} iterations, {res.fun_evals} "
-          f"evaluations, score {res.best_score}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    alone = []
+    for r in range(RESTARTS):
+        init = gpz_tpu_torch.init(X, Y, "VC", TRAIN_M, psi=psi, training=tr,
+                                  seed=1 + r, dtype="float64")
+        cfg = init.cfg
+        Xn = (X - init.muX[None, :]) / init.sdX[None, :]
+        Yc = Y[:, None] - init.muY[None, :]
+        psi_c = datautils.fix_psi(psi, len(Y), init.sdX, True)
+        dev = init.last.params.P.device
+        data_tr = model_mod._make_dataset(Xn, Yc, psi_c, np.ones(len(Y)), tr,
+                                          torch.float64, dev)
+        data_va = model_mod._make_dataset(Xn, Yc, psi_c, np.ones(len(Y)), va,
+                                          torch.float64, dev)
+        flat0, unravel = init.last.params.flatten()
+
+        def score_fn(flat, aux):
+            rmse, ll = holdout_metrics(unravel(flat), aux.w, data_va, cfg,
+                                       complete=True)
+            return ll, {"valid_rmse": rmse, "valid_ll": ll}
+
+        alone.append(minimize(model_mod._objective(unravel, data_tr, cfg,
+                                                   True),
+                              flat0, max_iter=TRAIN_ITERS,
+                              score_fn=score_fn))
+    torch.cuda.synchronize()
+    turn_secs = time.perf_counter() - t0
+    worst = 0.0
+    for r, (lane, one) in enumerate(zip(lanes, alone)):
+        check((lane.iterations, lane.fun_evals, lane.status)
+              == (one.iterations, one.fun_evals, one.status),
+              f"ensemble: restart {r} took {lane.iterations} iterations, "
+              f"{lane.fun_evals} evaluations, status {lane.status} in the "
+              f"lockstep run and {one.iterations}, {one.fun_evals}, "
+              f"{one.status} alone")
+        for which in ("x", "x_best"):
+            a, b = getattr(lane, which), getattr(one, which)
+            err = (a - b).abs()
+            ratio = float((err / (atol + rtol * b.abs())).max())
+            worst = max(worst, ratio)
+            check(ratio <= 1.0, f"ensemble: restart {r}'s {which} differs "
+                  f"from the restart alone by {float(err.max()):.3e} (err/"
+                  f"bound {ratio:.3f})")
+        check(abs(lane.best_score - one.best_score)
+              <= atol + rtol * abs(one.best_score), f"ensemble: restart {r}'s "
+              f"score {lane.best_score} against {one.best_score} alone")
+    for which, lane_x in (("best", lanes[best].x_best),
+                          ("last", lanes[best].x)):
+        check(torch.equal(getattr(model, which).params.flatten()[0], lane_x),
+              f"ensemble: the model's {which} parameters are not restart "
+              f"{best}'s")
+    bit = all(torch.equal(a.x, b.x) and torch.equal(a.x_best, b.x_best)
+              for a, b in zip(lanes, alone))
+
+    def lockstep():
+        gpz_tpu_torch.fit_ensemble(
+            X, Y, "VC", TRAIN_M, n_restarts=RESTARTS, training=tr,
+            validation=va, psi=psi, max_iter=TRAIN_ITERS, seed=1,
+            dtype="float64")
+
+    # once more after the restarts in turn, which ran warm; then host syncs
+    # and launches of the whole run, lockstep and in turn
+    warm_secs = host_ms(lockstep) / 1e3
+    syncs_b, calls_b = profiled_counts(lockstep)
+    one = alone[-1]
+    syncs_1, calls_1 = profiled_counts(lambda: minimize(
+        model_mod._objective(unravel, data_tr, cfg, True), flat0,
+        max_iter=TRAIN_ITERS, score_fn=score_fn))
     print(f"ensemble: {RESTARTS} restarts of VC m={TRAIN_M}, {TRAIN_ITERS} "
-          f"iterations each, in {secs:.3f} s ({secs / RESTARTS:.3f} s per "
-          f"restart, init included); scores {np.round(scores, 6).tolist()}, "
-          f"best restart {best}; evaluations {evals.tolist()}; restart "
-          f"{best} trained alone: largest parameter difference best "
-          f"{diffs['best']:.3e}, last {diffs['last']:.3e}; launches fwd/bwd "
-          f"{got} (expected {want})")
-    check(got == want, "ensemble: launch counts differ from the sum over "
-          "the restarts")
-    return got
+          f"iterations each, lockstep in {secs:.3f} s ({secs / RESTARTS:.3f} "
+          f"s per restart, init included; {warm_secs:.3f} s, "
+          f"{warm_secs / RESTARTS:.3f} s per restart, once more after the "
+          f"restarts in turn), in turn {turn_secs:.3f} s "
+          f"({turn_secs / RESTARTS:.3f} s per restart; "
+          f"{turn_secs / secs:.2f}x and {turn_secs / warm_secs:.2f}x); "
+          f"{rounds} rounds for evaluations "
+          f"{evals.tolist()}, iterations {its.tolist()}, statuses "
+          f"{[r.status for r in lanes]}; scores "
+          f"{np.round(scores, 6).tolist()}, best restart {best}; every "
+          f"restart against itself alone: equal counts and statuses, "
+          f"parameters err/bound {worst:.3f} (bit-equal: {bit}); launches "
+          f"fwd/bwd {got} ({got[0] / rounds:.2f} / {got[1] / rounds:.2f} per "
+          f"round); peak memory {peak / 2**30:.3f} GiB")
+    print(f"ensemble: the pair launched at forward "
+          f"{sorted(site_counts(fwd_sites).items())}, backward "
+          f"{sorted(site_counts(bwd_sites).items())}")
+    print(f"ensemble: under the profiler, the lockstep run {syncs_b} host "
+          f"syncs and {calls_b} kernel launches ({syncs_b / rounds:.1f} and "
+          f"{calls_b / rounds:.1f} per round of {rounds}); restart "
+          f"{RESTARTS - 1} alone "
+          f"{syncs_1} and {calls_1} ({syncs_1 / one.fun_evals:.1f} and "
+          f"{calls_1 / one.fun_evals:.1f} per evaluation of "
+          f"{one.fun_evals})")
+    fwd_recs = compare_sites("ensemble", fwd_sites, "phase-13 lockstep run",
+                             key="launches")
+    bwd_recs = compare_bwd_sites("ensemble", bwd_sites,
+                                 "phase-13 lockstep run")
+    return got, fwd_recs, bwd_recs
+
+
+def profiled_counts(fn) -> tuple:
+    """(cudaStreamSynchronize calls, cudaLaunchKernel calls) of one fn()
+    under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    return (sum(e.count for e in events if e.key == "cudaStreamSynchronize"),
+            sum(e.count for e in events
+                if e.key.startswith("cudaLaunchKernel")))
 
 
 def phase_host_lbfgs(model, X, Y, psi, tr, device_trace) -> tuple:
@@ -1816,7 +1957,7 @@ def parallel_rank(rank: int, workdir: str) -> int:
     out["sites"] = json.dumps({kind: [[n, b, rec[0]] for (n, b), rec in
                                       recs.items()]
                                for kind, recs in sites.items()})
-    torch.save({kind: {shape: tuple(a.cpu() for a in rec[1])
+    torch.save({kind: {shape: moved(rec[1], "cpu")
                        for shape, rec in recs.items()}
                 for kind, recs in sites.items()},
                os.path.join(workdir, f"rank{rank}_sites.pt"))
@@ -1836,8 +1977,9 @@ def bit_equal(name, results, key):
 
 def fit_launches(info, r) -> tuple:
     """(fwd, bwd) launches of one process of fit_ensemble that trained the
-    restarts `r`: init's posterior and each restart's evaluations and
-    scored iterations, then `last` and `best` resolved (phase 13)."""
+    one restart in `r` (a lane alone; phase 13's lockstep_sites counts
+    several): init's posterior, the restart's evaluations and scored
+    iterations, then `last` and `best` resolved."""
     evals = int(sum(info["fun_evals"][i] for i in r))
     its = int(sum(info["iterations"][i] for i in r))
     return len(r) + evals + its + len(r) + 4, evals
@@ -2092,17 +2234,16 @@ def phase_parallel(model, X, Y, psi, tr, va, data_tr, trace_f,
         for r in out:
             for nn, b, c in json.loads(str(r["sites"]))[kind]:
                 counts[(nn, b)] = counts.get((nn, b), 0) + c
-        return {shape: [counts[shape], tuple(
-            a.to(dev) for a in saved[0][kind].get(
-                shape, saved[-1][kind].get(shape, ())))]
+        return {shape: [counts[shape], moved(saved[0][kind].get(
+            shape, saved[-1][kind].get(shape, ())), dev)]
                 for shape in counts}
 
     fwd = gathered("fwd")
     bwd = gathered("bwd")
     # the uneven split's sites on the rank that holds the padded row
-    fwd_u = {s_: [c, tuple(a.to(dev) for a in saved[1]["fwd_uneven"][s_])]
+    fwd_u = {s_: [c, moved(saved[1]["fwd_uneven"][s_], dev)]
              for s_, (c, _) in gathered("fwd_uneven").items()}
-    bwd_u = {s_: [c, tuple(a.to(dev) for a in saved[1]["bwd_uneven"][s_])]
+    bwd_u = {s_: [c, moved(saved[1]["bwd_uneven"][s_], dev)]
              for s_, (c, _) in gathered("bwd_uneven").items()}
     del saved
     fwd_recs = compare_sites("parallel", fwd, "phase-18 main path (both "
@@ -2444,7 +2585,7 @@ def main(argv) -> int:
         objective_at(flat_t, unravel_t, data_tr, fitted.cfg)
     finally:
         phi_mod.vc_lnphi_complete = real
-    big = tuple(a.detach() for a in seen[0])
+    big = tuple(a.detach() for a in seen[0][:5])
     g_big = torch.randn(big[0].shape[0], big[2].shape[0], dtype=f64,
                         device=dev, generator=gen)
     small = tuple(a[:4096].contiguous() for a in big[:2]) + big[2:]
@@ -2735,7 +2876,8 @@ def main(argv) -> int:
     # gradient check and the bench command, each read with its own counts
     with tempfile.TemporaryDirectory() as workdir:
         new_paths = phase_cli(workdir)
-    new_paths["ensemble"] = phase_ensemble(X, Y, psi, tr, va)
+    new_paths["ensemble"], ens_fwd, ens_bwd = phase_ensemble(X, Y, psi, tr,
+                                                             va)
     new_paths["host_lbfgs"] = phase_host_lbfgs(model, X, Y, psi, tr,
                                                trace["f"])
     new_paths["derivcheck"] = phase_derivcheck(model, X, Y, psi, tr)
@@ -2761,9 +2903,10 @@ def main(argv) -> int:
                              **{k_: f for k_, (f, _) in new_paths.items()}},
         "max_abs_err": max(c["max_abs_err"] for c in (
             fwd_big, *serve_cases.values(), *mix_cases.values(),
-            *inf_fwd.values(), *par_fwd.values(), *demo_fwd.values())),
-        "sites": {**serve_cases, **mix_cases, **inf_fwd, **par_fwd,
-                  **demo_fwd},
+            *ens_fwd.values(), *inf_fwd.values(), *par_fwd.values(),
+            *demo_fwd.values())),
+        "sites": {**serve_cases, **mix_cases, **ens_fwd, **inf_fwd,
+                  **par_fwd, **demo_fwd},
         "shape": [n_, m_, d_, "float64"],
         "ms": fwd_big["ms"], "plain_ms": fwd_big["plain_ms"],
         **{k_: v for k_, v in bound("fwd", n_, m_, d_, "float64").items()
@@ -2777,8 +2920,9 @@ def main(argv) -> int:
                              "missing_serve": 0,
                              **{k_: b for k_, (_, b) in new_paths.items()}},
         "max_abs_err": max(bwd_errs + [c["max_abs_err"] for c in (
-            *inf_bwd.values(), *par_bwd.values(), *demo_bwd.values())]),
-        "sites": {**inf_bwd, **par_bwd, **demo_bwd},
+            *ens_bwd.values(), *inf_bwd.values(), *par_bwd.values(),
+            *demo_bwd.values())]),
+        "sites": {**ens_bwd, **inf_bwd, **par_bwd, **demo_bwd},
         "shape": [n_, m_, d_, "float64"],
         **bwd_rec["70000x100"],
         **{k_: v for k_, v in bound("bwd", n_, m_, d_, "float64").items()

@@ -4,11 +4,14 @@ The reference's random center initialization (ref GPz/init.m:58) makes
 multi-restart training embarrassingly parallel (SURVEY §2.3: the GPz analogue
 of ensemble/expert parallelism). gpz_tpu runs all restarts as one vmapped
 L-BFGS program, in which a restart that has finished is frozen, so each
-restart's result is that restart trained alone. The port's optimizer is a
-host loop around device evaluations (optim/lbfgs.py), so here the restarts
-are trained one after another on one device, each by the same `minimize`;
-with a mesh, the restarts are split over its restart group and each rank
-trains its own, on rows split over its data group.
+restart's result is that restart trained alone. The port does the same with
+`optim.minimize_batched`: the restarts are the lanes of one lockstep L-BFGS,
+each round of which evaluates every unfinished restart in one
+`nlog_ml_batched` call (for VC with full psi on complete rows, one (n, A*m)
+launch of each kernel of the design-matrix pair for A active restarts), and
+a finished restart leaves the batch. With a mesh, the restarts are split over
+its restart group and each rank trains its own as one batch, on rows split
+over its data group.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from gpz_tpu_torch import datautils
 from gpz_tpu_torch import model as model_mod
 from gpz_tpu_torch.config import TrainConfig
 from gpz_tpu_torch.objective import holdout_metrics
-from gpz_tpu_torch.optim import minimize
+from gpz_tpu_torch.optim import minimize_batched
 from gpz_tpu_torch.parallel import sharded
 from gpz_tpu_torch.parallel.mesh import DATA_AXIS, RESTART_AXIS, Mesh
 
@@ -53,14 +56,18 @@ def fit_ensemble(
     each by L-BFGS with validation early stopping; returns (best GPzModel,
     info dict with per-restart scores, iterations and evaluations).
 
-    The restarts run one after another on `device` (None: the CUDA device;
-    without one torch's own error is raised). With `mesh`
+    The restarts train together on `device` (None: the CUDA device;
+    without one torch's own error is raised) as one `minimize_batched`,
+    whose every round evaluates the unfinished restarts in one batched
+    call and scores those that end an iteration in one batched
+    holdout_metrics call; each restart's result has the bits of `minimize`
+    on it alone (nlog_ml_batched's `lanes`). With `mesh`
     (parallel.make_mesh; every rank calls fit_ensemble with the same
     arguments), restart r is trained by the ranks at restart index
-    r % (restart group's size), on rows split over their data group
-    (sharded.train_sharded's objective), and every rank returns the same
-    best model and info: the restarts' results are assembled by one
-    all-reduce over the restart group.
+    r % (restart group's size), a rank's restarts as one batch on rows split
+    over their data group (sharded.sharded_value_and_grad_batched), and
+    every rank returns the same best model and info: the restarts' results
+    are assembled by one all-reduce over the restart group.
 
     Precision: every restart trains in float64, as `train` does, and the
     chosen model is stored in `dtype`. gpz_tpu's ensemble trains in `dtype`
@@ -116,20 +123,20 @@ def fit_ensemble(
                                           f64, dev)
         complete_va = model_mod._complete(data_va)
 
-    flat0s = []
-    for mod in models:
-        flat, unravel = mod.last.params.astype(f64).flatten()
-        flat0s.append(flat)
+    _, unravel = base.last.params.flatten()
+    flat0s = torch.stack([mod.last.params.astype(f64).flatten()[0]
+                          for mod in models])
 
     if mesh is None:
-        fun = model_mod._objective(unravel, data_tr, cfg64, complete_tr)
+        fun = model_mod._objective_batched(unravel, data_tr, cfg64,
+                                           complete_tr)
         valid = (data_va, None, lambda x: x) if has_valid else None
     else:
         # every rank holds all rows, so the complete flags already agree
-        fun_s = sharded.sharded_value_and_grad(unravel, cfg64, mesh,
-                                               complete_tr)
+        fun_s = sharded.sharded_value_and_grad_batched(unravel, cfg64, mesh,
+                                                       complete_tr)
         shard_tr, n_tr = sharded.shard_dataset(data_tr, mesh)
-        fun = lambda flat: fun_s(flat, shard_tr, n_tr)  # noqa: E731
+        fun = lambda flats: fun_s(flats, shard_tr, n_tr)  # noqa: E731
         if has_valid:
             valid = (*sharded.shard_dataset(data_va, mesh),
                      sharded.sum_over(mesh.get_group(DATA_AXIS)))
@@ -138,26 +145,23 @@ def fit_ensemble(
     if has_valid:
         rows_va, n_va, reducer = valid
 
-        def score_fn(flat, aux):
-            rmse, ll = holdout_metrics(unravel(flat), aux.w, rows_va, cfg64,
+        def score_fn(flats, aux):
+            rmse, ll = holdout_metrics(unravel(flats), aux.w, rows_va, cfg64,
                                        n_eff=n_va, complete=complete_va,
                                        reducer=reducer)
             return ll, {"valid_rmse": rmse, "valid_ll": ll}
 
     tc = TrainConfig(max_iter=max_iter, max_attempts=max_attempts)
-    res = [
-        minimize(
-            fun, flat0,
-            history=tc.history, max_iter=tc.max_iter,
-            opt_tol=tc.opt_tol, prog_tol=tc.prog_tol,
-            c1=tc.c1, c2=tc.c2, max_ls=tc.max_ls,
-            score_fn=score_fn, max_attempts=tc.max_attempts,
-        )
-        for flat0 in flat0s
-    ]
+    res = minimize_batched(
+        fun, flat0s,
+        history=tc.history, max_iter=tc.max_iter,
+        opt_tol=tc.opt_tol, prog_tol=tc.prog_tol,
+        c1=tc.c1, c2=tc.c2, max_ls=tc.max_ls,
+        score_fn=score_fn, max_attempts=tc.max_attempts,
+    )
 
     # per restart: score, iterations, evaluations, x, x_best
-    p = flat0s[0].shape[0]
+    p = flat0s.shape[1]
     table = torch.zeros((n_restarts, 3 + 2 * p), dtype=f64, device=dev)
     for r_, rs in zip(mine, res):
         table[r_, :3] = torch.tensor(

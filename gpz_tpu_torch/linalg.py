@@ -61,6 +61,26 @@ def safe_cholesky(A: torch.Tensor, batch_dims: int = 0) -> torch.Tensor:
     return _cholesky_or_nan(A + jitter * scale * eye)
 
 
+def per_set(fn, batch_dims: int, *args):
+    """fn on each parameter set's slice of `args` (tensors with
+    `batch_dims` leading set axes, or None), its tensor results (one, or a
+    tuple) stacked along those axes; fn(*args) itself when batch_dims is 0.
+    A set then goes through the very products, sums and factorizations
+    that it goes through alone, where one batched call (cuBLAS's and
+    cuSOLVER's batched routines, a reduction planned for several outputs)
+    may round otherwise, so its bits do not depend on how many sets share
+    the call (the lanes of optim.minimize_batched must each equal minimize
+    alone)."""
+    if batch_dims == 0:
+        return fn(*args)
+    sets = next(a.shape[0] for a in args if a is not None)
+    parts = [[None] * sets if a is None else a.unbind(0) for a in args]
+    outs = [per_set(fn, batch_dims - 1, *one) for one in zip(*parts)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(o) for o in zip(*outs))
+    return torch.stack(outs)
+
+
 def chol_logdet(L: torch.Tensor) -> torch.Tensor:
     """log|A| from its Cholesky factor (batched)."""
     return 2.0 * torch.sum(torch.log(L.diagonal(dim1=-2, dim2=-1)), dim=-1)

@@ -25,7 +25,7 @@ from gpz_tpu_torch.config import ModelConfig, TrainConfig
 from gpz_tpu_torch.dataset import Dataset
 from gpz_tpu_torch.params import GPzParams
 from gpz_tpu_torch.objective import (
-    Posterior, holdout_metrics, nlog_ml, posterior,
+    Posterior, holdout_metrics, nlog_ml, nlog_ml_batched, posterior,
 )
 from gpz_tpu_torch.prior import get_prior
 from gpz_tpu_torch.optim import minimize
@@ -166,6 +166,24 @@ def _objective(unravel, data: Dataset, cfg64: ModelConfig, complete: bool):
         with torch.enable_grad():
             nlml, aux = nlog_ml(unravel(flat), data, cfg64, complete=complete)
             grad, = torch.autograd.grad(nlml, flat)
+        return nlml.detach(), grad, aux
+
+    return fun
+
+
+def _objective_batched(unravel, data: Dataset, cfg64: ModelConfig,
+                       complete: bool):
+    """fun(flats (B, p)) -> (nlml (B,), flat gradients (B, p), Aux with a
+    leading B) of nlog_ml_batched on `data`, the objective that
+    `optim.minimize_batched` takes: B sets in one call of the design
+    matrix."""
+
+    def fun(flats):
+        flats = flats.detach().requires_grad_(True)
+        with torch.enable_grad():
+            nlml, aux = nlog_ml_batched(flats, unravel, data, cfg64,
+                                        complete, lanes=True)
+            grad, = torch.autograd.grad(nlml.sum(), flats)
         return nlml.detach(), grad, aux
 
     return fun

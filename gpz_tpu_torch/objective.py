@@ -40,14 +40,17 @@ from gpz_tpu_torch.config import ModelConfig
 from gpz_tpu_torch.dataset import Dataset
 from gpz_tpu_torch.params import GPzParams
 from gpz_tpu_torch.phi import design_matrix
-from gpz_tpu_torch.linalg import safe_cholesky, chol_solve, solve_w_logdet
+from gpz_tpu_torch.linalg import (
+    chol_solve, per_set, safe_cholesky, solve_w_logdet,
+)
 
 _LN2PI = math.log(2.0 * math.pi)
 
 
 @dataclasses.dataclass
 class Aux:
-    """Per-evaluation aux outputs (the reference's global side channel)."""
+    """Per-evaluation aux outputs (the reference's global side channel); B
+    parameter sets (nlog_ml_batched) give every field a leading axis B."""
 
     w: torch.Tensor            # (m, k) posterior mean weights
     train_rmse: torch.Tensor   # scalar
@@ -73,40 +76,55 @@ def solve_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, name)
 
 
-def _gram_reductions(PHI, ob, Y, sdt, r):
+def _gram_reductions(PHI, ob, Y, sdt, r, sets=0):
     """The three n-reductions of the objective (Gram A, rhs, sum ob*y^2) in
     the solve dtype (ref GPz.m:63-75): the sums that a row-sharded run reduces
     across its shards through `r`. PHI (..., n, m) and ob (..., n, k), with
-    any leading axes of parameter sets."""
+    any leading axes of parameter sets; the first `sets` of them are taken
+    set by set (linalg.per_set)."""
     PHIs = PHI.to(sdt)
     W = PHIs[..., None, :] * ob.to(sdt)[..., None]              # (..., n, k, m)
-    # one set's (n, m) operand stays 2-D, so that matmul folds (k, m, n) @
-    # (n, m) into one product (a broadcast batch of one rounds differently)
-    right = PHIs if PHIs.dim() == 2 else PHIs[..., None, :, :]
-    A = r(W.movedim(-3, -1) @ right)                            # (..., k, m, m)
-    rhs = r(PHIs.transpose(-1, -2) @ (ob * Y).to(sdt))          # (..., m, k)
-    obyy = r(torch.sum((ob * Y * Y).to(sdt), dim=-2))           # (..., k)
+
+    def gram(W, PHIs):
+        # one set's (n, m) operand stays 2-D, so that matmul folds (k, m, n)
+        # @ (n, m) into one product (a broadcast batch of one rounds
+        # differently)
+        right = PHIs if PHIs.dim() == 2 else PHIs[..., None, :, :]
+        return W.movedim(-3, -1) @ right                # (..., k, m, m)
+
+    A = r(per_set(gram, sets, W, PHIs))
+    rhs = r(per_set(lambda P, oy: P.transpose(-1, -2) @ oy, sets, PHIs,
+                    (ob * Y).to(sdt)))                          # (..., m, k)
+    obyy = r(per_set(lambda t: torch.sum(t, dim=-2), sets,
+                     (ob * Y * Y).to(sdt)))                     # (..., k)
     return A, rhs, obyy
 
 
 def _gram_terms(params: GPzParams, cfg: ModelConfig, data: Dataset,
                 complete: bool, reducer: Callable = _identity,
-                batch_dims: int = 0):
+                batch_dims: int = 0, alone: bool = False):
     """Shared forward computation: PHI, noise, Gram, posterior weights.
     `batch_dims` leading axes of `params` are independent parameter sets
     (`design_matrix`): every result gains them, and each set climbs the
-    jitter ladder of SIGMA on its own."""
+    jitter ladder of SIGMA on its own. With `alone`, every product and sum
+    over rows and the factorization of SIGMA run set by set, so each set's
+    results have the bits of the set alone."""
     sdt = solve_dtype(cfg)
+    sets = batch_dims if alone else 0
     PHI, _, ln_beta = design_matrix(params, cfg, data.X, data.mask, data.psi,
-                                    complete)
+                                    complete, alone)
     beta = torch.exp(-ln_beta)                           # (..., n, k)
     ob = data.omega[:, None] * beta                      # (..., n, k)
     alpha = torch.exp(params.ln_alpha.to(sdt))           # (..., m, k)
 
     # SIGMA_k = PHI^T diag(ob_k) PHI + diag(alpha_k)   (ref GPz.m:63-65)
-    A, rhs, obyy = _gram_reductions(PHI, ob, data.Y, sdt, reducer)
+    A, rhs, obyy = _gram_reductions(PHI, ob, data.Y, sdt, reducer, sets)
     SIGMA = A + torch.diag_embed(alpha.transpose(-1, -2))   # (..., k, m, m)
-    w, logdet = solve_w_logdet(SIGMA, rhs, batch_dims)   # (..., m, k), (..., k)
+    # w (..., m, k), logdet (..., k)
+    if alone:
+        w, logdet = per_set(solve_w_logdet, batch_dims, SIGMA, rhs)
+    else:
+        w, logdet = solve_w_logdet(SIGMA, rhs, batch_dims)
     return PHI, ln_beta, beta, ob, alpha, SIGMA, logdet, w, rhs, obyy
 
 
@@ -116,18 +134,23 @@ def _n_eff(n_eff, data: Dataset, sdt):
     return torch.as_tensor(n_eff, device=data.X.device).to(sdt)
 
 
-def _fit_metrics(PHI, w, ln_beta, beta, data, n_eff, k, sdt, r):
+def _fit_metrics(PHI, w, ln_beta, beta, data, n_eff, k, sdt, r, sets=0):
     """(rmse, mean log likelihood) of the fit PHI w against data.Y (ref
-    GPz.m:236-259). The (n, k) residual stays in the compute dtype; only the
-    scalar accumulations happen in the solve dtype."""
-    delta = PHI @ w.to(PHI.dtype) - data.Y               # (n, k)
+    GPz.m:236-259): PHI (..., n, m) and w (..., m, k) with any leading axes
+    of parameter sets, each set's sums over its own rows; the first `sets`
+    of them are taken set by set (linalg.per_set). The (..., n, k) residual
+    stays in the compute dtype; only the scalar accumulations happen in the
+    solve dtype."""
+    delta = per_set(torch.matmul, sets, PHI, w.to(PHI.dtype)) - data.Y
     om = data.omega[:, None]
-    rmse = torch.sqrt(r(torch.sum((om * delta**2).to(sdt))) / (n_eff * k))
-    ll = (
-        r(torch.sum((om * (-0.5 * beta * delta**2 - 0.5 * ln_beta)).to(sdt)))
-        / (n_eff * k)
-        - 0.5 * _LN2PI
-    )
+
+    def total(t):
+        return r(per_set(lambda u: torch.sum(u, dim=(-2, -1)), sets,
+                         t.to(sdt)))
+
+    rmse = torch.sqrt(total(om * delta**2) / (n_eff * k))
+    ll = (total(om * (-0.5 * beta * delta**2 - 0.5 * ln_beta)) / (n_eff * k)
+          - 0.5 * _LN2PI)
     return rmse, ll
 
 
@@ -164,16 +187,20 @@ def _evidence(params, cfg, w, rhs, alpha, obyy, logdet, lnb_omega, sdt):
     return log_ml
 
 
-def _neg_log_ml(params, data, cfg, n_eff, complete, r, batch_dims):
+def _neg_log_ml(params, data, cfg, n_eff, complete, r, batch_dims,
+                alone=False):
     """(nlml (...), the _gram_terms) of one parameter set, or of a batch of
-    them along `batch_dims` leading axes; `n_eff` a tensor or a number."""
+    them along `batch_dims` leading axes (`alone`: as _gram_terms); `n_eff`
+    a tensor or a number."""
     sdt = solve_dtype(cfg)
     k = cfg.k
-    terms = _gram_terms(params, cfg, data, complete, r, batch_dims)
+    terms = _gram_terms(params, cfg, data, complete, r, batch_dims, alone)
     _, ln_beta, _, _, alpha, _, logdet, w, rhs, obyy = terms
-    log_ml = _evidence(
-        params, cfg, w, rhs, alpha, obyy, logdet,
-        r(torch.sum((ln_beta * data.omega[:, None]).to(sdt), dim=-2)), sdt)
+    lnb_omega = r(per_set(lambda t: torch.sum(t, dim=-2),
+                          batch_dims if alone else 0,
+                          (ln_beta * data.omega[:, None]).to(sdt)))
+    log_ml = _evidence(params, cfg, w, rhs, alpha, obyy, logdet, lnb_omega,
+                       sdt)
     total = torch.sum(log_ml, dim=-1) - 0.5 * _LN2PI * k * r(
         torch.sum(data.omega.to(sdt))
     )
@@ -196,26 +223,41 @@ def nlog_ml(
     Differentiate by autograd (`nlml.backward()`): the full analytic gradient
     of ref GPz.m:89-234 falls out, through the design-matrix kernel pair.
     """
+    return _with_aux(params, data, cfg, n_eff, complete, reducer, 0)
+
+
+def _with_aux(params, data, cfg, n_eff, complete, reducer, batch_dims):
+    """(nlml, Aux) of _neg_log_ml, its sets (if any) each as alone."""
     sdt = solve_dtype(cfg)
     n_eff = _n_eff(n_eff, data, sdt)
     nlml, (PHI, ln_beta, beta, _, _, _, _, w, _, _) = _neg_log_ml(
-        params, data, cfg, n_eff, complete, reducer, 0)
+        params, data, cfg, n_eff, complete, reducer, batch_dims, True)
 
     # train metrics (ref GPz.m:236-237), explicit instead of globals
     with torch.no_grad():
         train_rmse, train_ll = _fit_metrics(
-            PHI, w, ln_beta, beta, data, n_eff, cfg.k, sdt, reducer)
+            PHI, w, ln_beta, beta, data, n_eff, cfg.k, sdt, reducer,
+            batch_dims)
     return nlml, Aux(w=w.detach(), train_rmse=train_rmse, train_ll=train_ll)
 
 
 def nlog_ml_batched(flat: torch.Tensor, unravel: Callable, data: Dataset,
                     cfg: ModelConfig, complete: bool = False, n_eff=None,
-                    reducer: Callable = _identity) -> torch.Tensor:
+                    reducer: Callable = _identity, lanes: bool = False):
     """nlog_ml of B parameter sets at once: flat (B, p), a flat parameter
     vector per row (`GPzParams.flatten`'s layout, read by `unravel`), gives
     the (B,) nlml on the same data, what vmapping gpz_tpu's nlog_ml over
     flat vectors gives. `n_eff` and `reducer` as in nlog_ml: the real row
     count of a padded or row-sharded `data`, and the sum over shards.
+
+    `lanes`: the sets are the lanes of optim.minimize_batched. The result
+    is then (nlml, Aux) with a leading B on w, train_rmse and train_ll, the
+    whole of what the vmapped nlog_ml returns, and each set's value,
+    gradient and Aux have the bits of nlog_ml on that set alone: every
+    product and sum over rows and the factorization of SIGMA run set by set
+    (linalg.per_set), which costs launches, so a lane of a lockstep L-BFGS
+    takes the branches it takes alone. Without it (the samplers) one joint
+    pass computes the nlml, equal to the single values to rounding.
 
     The design matrix joins the B sets' bases into one (n, B * m) call, so
     on complete rows with full psi the kernel pair launches once forward and
@@ -223,8 +265,14 @@ def nlog_ml_batched(flat: torch.Tensor, unravel: Callable, data: Dataset,
     with a leading axis B: ln_beta, the three reductions, the (B, k, m, m)
     factorization, whose jitter ladder each set climbs on its own, and the
     evidence terms. The sets share nothing, so autograd's gradient of
-    `nlml.sum()` in flat is each row's own gradient.
+    `nlml.sum()` in flat is each row's own gradient. (With `lanes`, the
+    pair's backward plans its sums over rows per set; a lane's bits are its
+    lone ones given rows of `flat` that start where a lone vector's storage
+    would, as minimize_batched lays them out.)
     """
+    if lanes:
+        return _with_aux(unravel(flat), data, cfg, n_eff, complete, reducer,
+                         1)
     return _neg_log_ml(unravel(flat), data, cfg,
                        data.n if n_eff is None else n_eff, complete, reducer,
                        1)[0]
@@ -265,12 +313,15 @@ def holdout_metrics(
     reducer: Callable = _identity,
 ):
     """Validation RMSE / mean log likelihood given training weights w: the
-    validation block of ref GPz.m:239-259. Returns (rmse, ll)."""
+    validation block of ref GPz.m:239-259. Returns (rmse, ll). B parameter
+    sets (each field of `params` with a leading axis B, w (B, m, k)) give
+    (B,) each through one call of the design matrix, each set's bits those
+    of the set alone (the scores of minimize_batched's lanes)."""
     sdt = solve_dtype(cfg)
     n_eff = _n_eff(n_eff, data, sdt)
     with torch.no_grad():
         PHI, _, ln_beta = design_matrix(params, cfg, data.X, data.mask,
-                                        data.psi, complete)
+                                        data.psi, complete, alone=True)
         beta = torch.exp(-ln_beta)
         return _fit_metrics(PHI, w, ln_beta, beta, data, n_eff, cfg.k, sdt,
-                            reducer)
+                            reducer, PHI.dim() - 2)

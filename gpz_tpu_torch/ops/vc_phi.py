@@ -111,10 +111,10 @@ def library() -> ctypes.CDLL:
         )
         lib.gpz_vc_lnphi_fwd.restype = ctypes.c_int
         lib.gpz_vc_lnphi_bwd.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         )
         lib.gpz_vc_lnphi_bwd.restype = ctypes.c_int
-        lib.gpz_vc_lnphi_bwd_spans.argtypes = [ctypes.c_int] * 4
+        lib.gpz_vc_lnphi_bwd_spans.argtypes = [ctypes.c_int] * 5
         lib.gpz_vc_lnphi_bwd_spans.restype = ctypes.c_int
         lib.gpz_cuda_error_string.argtypes = [ctypes.c_int]
         lib.gpz_cuda_error_string.restype = ctypes.c_char_p
@@ -182,17 +182,22 @@ def _forward(X, psi, P, Sigma, logdet_Sigma):
     return out
 
 
-def vc_lnphi_bwd(X, psi, P, Sigma, g):
+def vc_lnphi_bwd(X, psi, P, Sigma, g, sets=1):
     """(dP (m, d), dSigma (m, d, d)) for the cotangent g (n, m) of lnPHI, by
     the backward kernel (CUDA tensors) or `vc_lnphi_bwd_plain` (CPU
     tensors). Two calls on the same CUDA inputs give the same bits: the
     kernel sums each block's span of rows (a span is as long as one wave of
     blocks needs) and then the spans, each in a fixed order, with no
-    atomics."""
+    atomics. `sets` (dividing m): the bases are that many equal runs, the
+    parameter sets of a batched evaluation, and the sums are planned for
+    one run, so that each run's dP and dSigma have the bits of a call on its
+    bases alone."""
     global LAUNCHES_BWD
     n, m, d = _check(X, psi, P, Sigma, g=g)
+    if sets < 1 or m % sets:
+        raise ValueError(f"{m} bases are not {sets} equal sets")
     if X.device.type == "cpu":
-        return vc_lnphi_bwd_plain(X, psi, P, Sigma, g)
+        return vc_lnphi_bwd_plain(X, psi, P, Sigma, g, sets)
     dP = torch.empty_like(P)
     dSigma = torch.empty_like(Sigma)
     if m == 0:
@@ -203,7 +208,7 @@ def vc_lnphi_bwd(X, psi, P, Sigma, g):
     is_double = int(X.dtype == torch.float64)
     with torch.cuda.device(X.device):
         # scratch: one partial per span of rows of the first pass
-        spans = lib.gpz_vc_lnphi_bwd_spans(n, m, d, is_double)
+        spans = lib.gpz_vc_lnphi_bwd_spans(n, m, sets, d, is_double)
         if spans < 1:
             raise RuntimeError("vc_lnphi backward: no launch plan for "
                                f"n={n}, m={m}, d={d} on {X.device}")
@@ -212,7 +217,7 @@ def vc_lnphi_bwd(X, psi, P, Sigma, g):
         err = lib.gpz_vc_lnphi_bwd(
             X.data_ptr(), psi.data_ptr(), P.data_ptr(), Sigma.data_ptr(),
             g.data_ptr(), partial.data_ptr(), dP.data_ptr(),
-            dSigma.data_ptr(), n, m, d, is_double,
+            dSigma.data_ptr(), n, m, sets, d, is_double,
             torch.cuda.current_stream(X.device).cuda_stream,
         )
     _raise_on(err, "vc_lnphi backward")
@@ -225,30 +230,42 @@ class VcLnPhi(torch.autograd.Function):
     to the kernels on CUDA tensors and to the plain twins on CPU tensors."""
 
     @staticmethod
-    def forward(ctx, X, psi, P, Sigma, logdet_Sigma):
+    def forward(ctx, X, psi, P, Sigma, logdet_Sigma, sets):
         ctx.save_for_backward(X, psi, P, Sigma)
+        ctx.sets = sets
         return _forward(X, psi, P, Sigma, logdet_Sigma)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         X, psi, P, Sigma = ctx.saved_tensors
-        dP, dSigma = vc_lnphi_bwd(X, psi, P, Sigma, g.contiguous())
-        return None, None, dP, dSigma, 0.5 * g.sum(0)
+        dP, dSigma = vc_lnphi_bwd(X, psi, P, Sigma, g.contiguous(), ctx.sets)
+        d_lds = g.sum(0)
+        if ctx.sets > 1:
+            # each set's column sums as alone (a sum over rows is planned by
+            # the number of columns it makes)
+            d_lds = torch.cat([c.contiguous().sum(0)
+                               for c in g.chunk(ctx.sets, dim=1)])
+        return None, None, dP, dSigma, 0.5 * d_lds, None
 
 
-def vc_lnphi_complete(X, psi, P, Sigma, logdet_Sigma):
+def vc_lnphi_complete(X, psi, P, Sigma, logdet_Sigma, sets=1):
     """lnPHI (n, m) for complete data with full-covariance input noise.
 
     X (n, d); psi (n, d, d); P (m, d); Sigma (m, d, d); logdet_Sigma (m,):
     contiguous, one dtype (float32 or float64), one device, 1 <= d <= 8.
     Only the lower triangles of psi and Sigma are read. Differentiable in P,
-    Sigma and logdet_Sigma; X and psi are data.
+    Sigma and logdet_Sigma; X and psi are data. `sets`: the bases are that
+    many equal runs, one per parameter set of a batched evaluation, and the
+    gradient of each run is that of a call on its bases alone (each pair's
+    lnPHI is so whatever the call).
     """
     if torch.is_grad_enabled() and (X.requires_grad or psi.requires_grad):
         raise RuntimeError("vc_lnphi_complete has no gradient in X or psi: "
                            "they are data; detach them")
-    return VcLnPhi.apply(X, psi, P, Sigma, logdet_Sigma)
+    if sets < 1 or P.shape[0] % sets:
+        raise ValueError(f"{P.shape[0]} bases are not {sets} equal sets")
+    return VcLnPhi.apply(X, psi, P, Sigma, logdet_Sigma, sets)
 
 
 def vc_lnphi_plain(X, psi, P, Sigma, logdet_Sigma):
@@ -264,12 +281,18 @@ def vc_lnphi_plain(X, psi, P, Sigma, logdet_Sigma):
     return torch.cat(outs)
 
 
-def vc_lnphi_bwd_plain(X, psi, P, Sigma, g):
+def vc_lnphi_bwd_plain(X, psi, P, Sigma, g, sets=1):
     """(dP, dSigma) in plain PyTorch, by the kernel's analytic formulas:
     linalg.unrolled_inv_psd gives A^-1 on the (rows, m, d, d) systems, then
     h = A^-1 Delta; a block of rows at a time, blocks summed in order.
     The upper triangle of dSigma is mirrored into the lower, as the kernel
-    writes it."""
+    writes it. With `sets`, each equal run of bases is computed as a call
+    of its own."""
+    if sets > 1:
+        runs = zip(P.chunk(sets), Sigma.chunk(sets), g.chunk(sets, dim=1))
+        return tuple(torch.cat(t) for t in zip(*(
+            vc_lnphi_bwd_plain(X, psi, p, s, c.contiguous())
+            for p, s, c in runs)))
     dP = torch.zeros_like(P)
     dSigma = torch.zeros_like(Sigma)
     step = _plain_rows(P.shape[0], X.shape[1])

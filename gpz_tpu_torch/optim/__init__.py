@@ -1,4 +1,8 @@
-from gpz_tpu_torch.optim.lbfgs import MinimizeResult, minimize
+from gpz_tpu_torch.optim.lbfgs import (
+    MinimizeResult,
+    minimize,
+    minimize_batched,
+)
 from gpz_tpu_torch.optim.host_lbfgs import minimize_host
 from gpz_tpu_torch.optim.solvers import (
     METHODS,
@@ -11,6 +15,7 @@ from gpz_tpu_torch.optim.derivcheck import check_gradient, numerical_gradient
 
 __all__ = [
     "minimize",
+    "minimize_batched",
     "MinimizeResult",
     "minimize_host",
     "minimize_any",

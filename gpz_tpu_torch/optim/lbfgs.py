@@ -24,15 +24,28 @@ maps (x, aux) to (score, extras) where higher score is better (the
 reference's validation log-likelihood). Per-iteration scalars are recorded in
 trace arrays (the reference's printed iteration table, callBack.m:16-46).
 
+One optimization is a lane: a generator (`_lane`) that holds the whole
+L-BFGS state machine and, instead of calling anything, yields its requests
+to a driver: a point to evaluate, the raw (score, extras) of a point to
+score, or a bundle of 0-d tensors to read to the host. `minimize` drives one
+lane and answers each request as it comes. `minimize_batched` drives R lanes
+in lockstep (gpz_tpu's `jax.vmap(minimize)`): it answers every lane's read
+in one transfer, scores every lane that ends an iteration together in one
+call, and evaluates every unfinished lane's pending trial in one call of a
+batched objective, so a run makes max(fun_evals) objective calls. A lane
+computes exactly what it computes alone, so its result is that of
+`minimize` on its start; a finished lane leaves the batch.
+
 Each objective evaluation reads three scalars from the device in one
 transfer (f, whether the gradient is finite, the directional derivative);
-each iteration reads two more small bundles (direction test, curvature pair).
+each iteration reads two more small bundles (direction test, curvature pair)
+and, with a score, one more.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -48,6 +61,9 @@ STATUS_NO_DESCENT = 6       # directional derivative above -prog_tol
 STATUS_PLATEAU = 7          # gpz_tpu's patience exit; never returned here
 
 _F = np.float64
+
+# the requests a lane makes of its driver
+_EVAL, _READ, _SCORE = "eval", "read", "score"
 
 
 @dataclasses.dataclass
@@ -87,10 +103,10 @@ def _cubic_min(x1, f1, g1, x2, f2, g2, lo, hi):
     return np.minimum(np.maximum(t, lo), hi)
 
 
-@np.errstate(all="ignore")
-def wolfe_line_search(fun, x, f0, g0, d, gtd0, t0, c1, c2, max_ls, prog_tol,
+def wolfe_line_search(x, f0, g0, d, gtd0, t0, c1, c2, max_ls, prog_tol,
                       aux0):
-    """Strong-Wolfe line search (ref minFunc/WolfeLineSearch.m).
+    """Strong-Wolfe line search (ref minFunc/WolfeLineSearch.m), as a
+    generator of a lane's requests (module docstring).
 
     Returns (t, f, g, aux, n_evals, failed, saw_finite). On failure t == 0
     and the initial point is returned.
@@ -107,11 +123,12 @@ def wolfe_line_search(fun, x, f0, g0, d, gtd0, t0, c1, c2, max_ls, prog_tol,
     f0, t0, gtd0 = _F(f0), _F(t0), _F(gtd0)
 
     def eval_at(t):
-        f, g, aux = fun(x + float(t) * d)
+        f, g, aux = yield _EVAL, x + float(t) * d
         # non-finite trial f OR g reads as +inf with a zeroed gradient: the
         # search then backtracks, playing the role of minFunc's isLegal +
         # Armijo fallback (WolfeLineSearch.m:53 checks BOTH f and g)
-        f, g_ok, gtd = _scalars(f, torch.isfinite(g).all(), torch.dot(g, d))
+        f, g_ok, gtd = yield _READ, (f, torch.isfinite(g).all(),
+                                     torch.dot(g, d))
         if not np.isfinite(f) or not g_ok:
             return _F(np.inf), torch.zeros_like(g), aux, _F(0.0)
         return f, g, aux, gtd
@@ -208,7 +225,7 @@ def wolfe_line_search(fun, x, f0, g0, d, gtd0, t0, c1, c2, max_ls, prog_tol,
         do_eval = (not done) and (not failed) and ls_iter < max_ls
         if do_eval:
             t = _F(t_next)
-            f_new, g_new, aux_new, gtd_new = eval_at(t)
+            f_new, g_new, aux_new, gtd_new = yield from eval_at(t)
             ls_iter += 1
             saw_finite = saw_finite or bool(np.isfinite(f_new))
         pending = False
@@ -278,33 +295,175 @@ def minimize(
     once per iteration, iteration 0 included (the live version of the
     reference's per-iteration table, ref GPz/callBack.m:16-46).
     """
-    with torch.no_grad():
-        return _minimize(
-            fun, x0, int(history), int(max_iter), opt_tol, prog_tol,
-            c1, c2, int(max_ls), score_fn,
-            2**31 - 1 if max_attempts is None else int(max_attempts),
-            init_best_score, x_best0, iter_callback,
-        )
+    lane = _lane(x0, int(history), int(max_iter), opt_tol, prog_tol, c1, c2,
+                 int(max_ls), score_fn is not None, _cap(max_attempts),
+                 init_best_score, x_best0, iter_callback)
+    with torch.no_grad(), np.errstate(all="ignore"):
+        request = next(lane)
+        while True:
+            kind = request[0]
+            if kind == _EVAL:
+                reply = fun(request[1])
+            elif kind == _SCORE:
+                reply = score_fn(request[1], request[2])
+            else:
+                reply = _scalars(*request[1])
+            try:
+                request = lane.send(reply)
+            except StopIteration as stop:
+                return stop.value
 
 
-@np.errstate(all="ignore")
-def _minimize(fun, x0, history, max_iter, opt_tol, prog_tol, c1, c2, max_ls,
-              user_score, attempts_cap, init_best_score, x_best0,
-              iter_callback):
+def minimize_batched(
+    fun: Callable,
+    x0s: torch.Tensor,
+    *,
+    history: int = 100,
+    max_iter: int = 200,
+    opt_tol: float = 1e-5,
+    prog_tol: float = 1e-9,
+    c1: float = 1e-4,
+    c2: float = 0.9,
+    max_ls: int = 25,
+    score_fn: Optional[Callable] = None,
+    max_attempts=None,
+    init_best_score=None,
+    x_best0: Optional[torch.Tensor] = None,
+) -> List[MinimizeResult]:
+    """`minimize` of R starts x0s (R, p) at once, the counterpart of
+    gpz_tpu's `jax.vmap(minimize)`: a list of R MinimizeResults, lane r's
+    equal to `minimize` from x0s[r] with a single-point objective that
+    computes what fun computes for a row.
+
+    fun(X (B, p)) -> (f (B,), g (B, p), aux), aux a tensor, a dataclass, a
+    tuple or a list whose tensors carry a leading axis B (objective.Aux of
+    nlog_ml_batched); score_fn(X (B, p), aux) -> (score (B,), extras {name:
+    (B,)}). Every call covers the lanes that want one: fun is called once
+    per round with the pending trial of every unfinished lane, max(fun_evals)
+    times in all; a finished lane is not evaluated again. score_fn is called
+    once for the lanes that end an iteration in the same round. X's rows
+    start on 512-byte boundaries (`_rows`), as a lone point's storage does.
+
+    `max_attempts` and `init_best_score`: None, one value for every lane, or
+    a sequence of R; `x_best0`: None or (R, p). Each as in `minimize`, per
+    lane.
+    """
+    R = x0s.shape[0]
+    caps = [_cap(a) for a in _per_lane(max_attempts, R)]
+    floors = _per_lane(init_best_score, R)
+    bests = [None] * R if x_best0 is None else list(x_best0)
+    lanes = [_lane(x0s[r], int(history), int(max_iter), opt_tol, prog_tol,
+                   c1, c2, int(max_ls), score_fn is not None, caps[r],
+                   floors[r], bests[r], None) for r in range(R)]
+    results = [None] * R
+    requests = {}
+
+    def advance(r, reply):
+        try:
+            requests[r] = lanes[r].send(reply)
+        except StopIteration as stop:
+            results[r] = stop.value
+            del requests[r]
+
+    with torch.no_grad(), np.errstate(all="ignore"):
+        for r in range(R):
+            requests[r] = next(lanes[r])
+        while requests:
+            # reads first, then scores: lanes ending an iteration in the same
+            # round reach their score together, and every lane's next
+            # request is then an evaluation
+            kind = next(k for k in (_READ, _SCORE, _EVAL)
+                        if any(q[0] == k for q in requests.values()))
+            ids = [r for r, q in requests.items() if q[0] == kind]
+            if kind == _READ:
+                vals = _scalars(*(t for r in ids for t in requests[r][1]))
+                replies, at = [], 0
+                for r in ids:
+                    n = len(requests[r][1])
+                    replies.append(vals[at:at + n])
+                    at += n
+            else:
+                X = _rows([requests[r][1] for r in ids])
+                if kind == _SCORE:
+                    score, extras = score_fn(X, _tree(
+                        lambda *ts: torch.stack(ts),
+                        *(requests[r][2] for r in ids)))
+                    replies = [(score[j], {k: v[j] for k, v in extras.items()})
+                               for j in range(len(ids))]
+                else:
+                    f, g, aux = fun(X)
+                    # a lane's gradient in storage of its own, as alone
+                    replies = [(f[j], g[j].clone(), _tree(lambda t: t[j], aux))
+                               for j in range(len(ids))]
+            for r, reply in zip(ids, replies):
+                advance(r, reply)
+    return results
+
+
+def _rows(vectors) -> torch.Tensor:
+    """The lanes' (p,) vectors as the rows of a (B, p) tensor whose rows
+    start on 512-byte boundaries, as a vector allocated alone does: a CUDA
+    kernel's vectorized loads, and with them its order of summation, depend
+    on the alignment of its operands, so a lane's slices of the batch must
+    be aligned as its own vector would be."""
+    p = vectors[0].shape[0]
+    per = max(1, 512 // vectors[0].element_size())
+    buf = vectors[0].new_empty((len(vectors), -(-p // per) * per))
+    buf[:, :p] = torch.stack(vectors)
+    return buf[:, :p]
+
+
+def _cap(max_attempts) -> int:
+    return 2**31 - 1 if max_attempts is None else int(max_attempts)
+
+
+def _per_lane(value, R: int) -> list:
+    """None or one value for every lane, else a sequence of R."""
+    if value is None or np.ndim(value) == 0:
+        return [value] * R
+    value = list(value)
+    if len(value) != R:
+        raise ValueError(f"{len(value)} values for {R} lanes")
+    return value
+
+
+def _tree(fn, *trees):
+    """fn over the tensors at the same place in `trees` (tensors,
+    dataclasses, tuples and lists of them); anything else is taken from the
+    first tree."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return fn(*trees)
+    if dataclasses.is_dataclass(first):
+        return dataclasses.replace(first, **{
+            fl.name: _tree(fn, *(getattr(t, fl.name) for t in trees))
+            for fl in dataclasses.fields(first)})
+    if isinstance(first, (tuple, list)):
+        return type(first)(_tree(fn, *items) for items in zip(*trees))
+    return first
+
+
+def _lane(x0, history, max_iter, opt_tol, prog_tol, c1, c2, max_ls, scored,
+          attempts_cap, init_best_score, x_best0, iter_callback):
+    """One optimization as a generator of requests (module docstring):
+    (_EVAL, x) is answered by fun(x)'s (f, g, aux), (_SCORE, x, aux) by
+    score_fn(x, aux)'s (score, extras), (_READ, tensors) by their values as
+    float64 host scalars. Returns the MinimizeResult."""
     def score_of(x, f, aux):
-        if user_score is None:
+        if not scored:
             return -f, {}
-        score, extras = user_score(x, aux)
+        score, extras = yield _SCORE, x, aux
         names = list(extras)
-        vals = _scalars(score, *(extras[n] for n in names))
+        vals = yield _READ, (score, *(extras[n] for n in names))
         return vals[0], dict(zip(names, vals[1:]))
 
     p = x0.shape[0]
     x = x0.detach()
-    f, g, aux = fun(x)
+    f, g, aux = yield _EVAL, x
     g = g.detach()
-    f, g_ok, opt_cond = _scalars(f, torch.isfinite(g).all(), g.abs().max())
-    score, extras = score_of(x, f, aux)
+    f, g_ok, opt_cond = yield _READ, (f, torch.isfinite(g).all(),
+                                      g.abs().max())
+    score, extras = yield from score_of(x, f, aux)
     if init_best_score is None:
         init_best_score = -np.inf
     init_best_score = _F(init_best_score)
@@ -356,7 +515,7 @@ def _minimize(fun, x0, history, max_iter, opt_tol, prog_tol, c1, c2, max_ls,
         # test (minFunc.m:972-980), and reset the curvature memory. ">= 0"
         # and not "> -prog_tol": a direction with tiny-but-negative gtd is
         # the normal near-convergence regime, not a breakdown.
-        d_ok, gtd, g_l1, g_sq = _scalars(
+        d_ok, gtd, g_l1, g_sq = yield _READ, (
             torch.isfinite(d).all(), torch.dot(g, d), g.abs().sum(),
             torch.dot(g, g))
         d_bad = (not d_ok) or bool(gtd >= 0)
@@ -377,8 +536,8 @@ def _minimize(fun, x0, history, max_iter, opt_tol, prog_tol, c1, c2, max_ls,
             t0 = _F(1.0)
 
         t, f_new, g_new, aux_new, ls_evals, ls_failed, saw_finite = (
-            wolfe_line_search(fun, x, f, g, d, gtd, t0, c1, c2, max_ls,
-                              prog_tol, aux))
+            yield from wolfe_line_search(x, f, g, d, gtd, t0, c1, c2, max_ls,
+                                         prog_tol, aux))
         g_new = g_new.detach()
         sk = float(t) * d
         x_new = x + sk
@@ -394,7 +553,7 @@ def _minimize(fun, x0, history, max_iter, opt_tol, prog_tol, c1, c2, max_ls,
 
         # curvature update with skip rule (lbfgsAdd.m:5)
         yk = g_new - g
-        ys, yy, opt_cond, step_max = _scalars(
+        ys, yy, opt_cond, step_max = yield _READ, (
             torch.dot(yk, sk), torch.dot(yk, yk), g_new.abs().max(),
             sk.abs().max())
         if ys > 1e-10 and not ls_failed:
@@ -408,7 +567,7 @@ def _minimize(fun, x0, history, max_iter, opt_tol, prog_tol, c1, c2, max_ls,
 
         # scoring / early stopping, skipped on a soft-failed iteration
         # (x unchanged: re-scoring the same point must not reset `attempts`)
-        score, extras = score_of(x_new, f_new, aux_new)
+        score, extras = yield from score_of(x_new, f_new, aux_new)
         improved = bool(score >= best_score) and not soft_fail
         if improved:
             best_x, best_score = x_new, score
@@ -443,7 +602,7 @@ def _minimize(fun, x0, history, max_iter, opt_tol, prog_tol, c1, c2, max_ls,
         status = STATUS_MAX_ITER
     # with no score_fn, "best" mirrors the reference's trainingOnly callback
     # path: best == last (callBack.m:20-22)
-    if user_score is None:
+    if not scored:
         best_x, best_score = x, -f
     return MinimizeResult(
         x=x, f=float(f), x_best=best_x, best_score=float(best_score),

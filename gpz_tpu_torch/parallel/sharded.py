@@ -172,6 +172,31 @@ def sharded_value_and_grad(unravel: Callable, cfg: ModelConfig, mesh: Mesh,
     return fun
 
 
+def sharded_value_and_grad_batched(unravel: Callable, cfg: ModelConfig,
+                                   mesh: Mesh,
+                                   complete: bool = False) -> Callable:
+    """sharded_value_and_grad for B parameter sets at once, the objective
+    that optim.minimize_batched takes: fun(flats (B, p), data, n_eff) ->
+    (nlml (B,), flat gradients (B, p), Aux with a leading B), each equal on
+    every rank of the data group: one nlog_ml_batched call on this rank's
+    rows (one launch of each kernel of the pair), its sums all-reduced, and
+    one mean_grad of the (B, p) gradient."""
+    group = mesh.get_group(DATA_AXIS)
+    complete = _agree_complete(complete, group)
+    r = sum_over(group)
+
+    def fun(flats, data, n_eff):
+        flats = flats.detach().requires_grad_(True)
+        with torch.enable_grad():
+            nlml, aux = nlog_ml_batched(mean_grad(flats, group), unravel,
+                                        data, cfg, complete, n_eff=n_eff,
+                                        reducer=r, lanes=True)
+            grad, = torch.autograd.grad(nlml.sum(), flats)
+        return nlml.detach(), grad, aux
+
+    return fun
+
+
 def train_sharded(
     params0: GPzParams,
     data: Dataset,

@@ -40,6 +40,7 @@ from gpz_tpu_torch.linalg import (
     safe_cholesky,
     chol_logdet,
     masked_psd,
+    per_set,
     quad_logdet_psd,
 )
 # PHI_BLOCK_ROWS: the row block of the masked full-covariance pass too; it
@@ -57,6 +58,7 @@ def log_phi(
     mask: torch.Tensor,
     psi: Optional[torch.Tensor],
     complete: bool = False,
+    alone: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Compute (lnPHI, lnN), each (n, m).
 
@@ -71,20 +73,35 @@ def log_phi(
     them for a (B, p) batch of flat vectors), give (lnPHI, lnN) of (B, n, m):
     the sets' bases are joined into one axis of B * m bases, so the kernel
     pair runs once for all of them, and the full family's iSigma climbs the
-    jitter ladder per set.
+    jitter ladder per set. With `alone`, each set's values and gradient have
+    the bits of the set alone (the lanes of optim.minimize_batched): the
+    pair's backward plans its sums over rows per set, the results are laid
+    out set after set, and a path without the pair computes each set by
+    itself (linalg.per_set).
     """
-    lead = params.P.shape[:-2]
-    G = params.gamma.expand(*lead, *cfg.gamma_expanded_shape)
+    lead = params.P.dim() - 2
+    if alone and lead and not (cfg.full_cov and complete and psi is not None):
+        return per_set(lambda g, p: _log_phi(g, p, cfg, X, mask, psi,
+                                             complete, False),
+                       lead, params.gamma, params.P)
+    return _log_phi(params.gamma, params.P, cfg, X, mask, psi, complete,
+                    alone)
+
+
+def _log_phi(gamma, P, cfg, X, mask, psi, complete, alone):
+    lead = P.shape[:-2]
+    G = gamma.expand(*lead, *cfg.gamma_expanded_shape)
     if cfg.full_cov:
-        ln_phi, ln_n = _log_phi_full(G, params.P, X, mask, psi, complete,
-                                     len(lead))
+        ln_phi, ln_n = _log_phi_full(G, P, X, mask, psi, complete, len(lead),
+                                     lead.numel() if alone else 1)
     else:
         ln_phi, ln_n = _log_phi_diag(G.reshape(-1, cfg.d),
-                                     params.P.reshape(-1, cfg.d), X, mask,
-                                     psi)
+                                     P.reshape(-1, cfg.d), X, mask, psi)
     if lead:
         ln_phi, ln_n = (t.reshape(X.shape[0], *lead, cfg.m).movedim(0, -2)
                         for t in (ln_phi, ln_n))
+        if alone:
+            ln_phi, ln_n = ln_phi.contiguous(), ln_n.contiguous()
     return ln_phi, ln_n
 
 
@@ -150,10 +167,11 @@ def _masked_block(Xb, maskb, psib, P, Sigma):
     return ln_phi, ln_n
 
 
-def _log_phi_full(G, P, X, mask, psi, complete, batch_dims=0):
+def _log_phi_full(G, P, X, mask, psi, complete, batch_dims=0, sets=1):
     """G (*sets, m, d, d) and P (*sets, m, d), with `batch_dims` leading
     axes of parameter sets whose bases are joined into one axis after the
-    factorization of iSigma."""
+    factorization of iSigma; the kernel pair's backward plans its sums for
+    `sets` equal runs of the joined bases."""
     n, d = X.shape
     iSig = G.transpose(-1, -2) @ G           # Gamma^T Gamma (getPHI.m:73)
     L_iSig = safe_cholesky(iSig, batch_dims)
@@ -178,7 +196,7 @@ def _log_phi_full(G, P, X, mask, psi, complete, batch_dims=0):
 
     if complete:
         ln_phi = vc_lnphi_complete(X, psi, P.contiguous(), Sigma,
-                                   logdet_Sigma)
+                                   logdet_Sigma, sets)
         ln_n = ln_phi - 0.5 * logdet_Sigma[None, :] - 0.5 * d * _LN2PI
         return ln_phi, ln_n
 
@@ -203,16 +221,22 @@ def design_matrix(
     mask: torch.Tensor,
     psi: Optional[torch.Tensor],
     complete: bool = False,
+    alone: bool = False,
 ):
     """(PHI, lnN, ln_beta_i): activations, log densities, log noise variance.
 
     ln_beta_i = b + PHI @ v when heteroscedastic (ref getPHI.m:117-125).
     B parameter sets with a leading axis B give each a leading axis B
-    (`log_phi`).
+    (`log_phi`); with `alone`, each set's results and gradient have the bits
+    of the set alone: `log_phi`'s, and PHI @ v and b's broadcast over rows
+    set by set.
     """
-    ln_phi, ln_n = log_phi(params, cfg, X, mask, psi, complete)
+    ln_phi, ln_n = log_phi(params, cfg, X, mask, psi, complete, alone)
     PHI = torch.exp(ln_phi)
-    ln_beta_i = params.b[..., None, :].expand(*ln_phi.shape[:-1], cfg.k)
-    if params.heteroscedastic:
-        ln_beta_i = ln_beta_i + PHI @ params.v
-    return PHI, ln_n, ln_beta_i
+
+    def noise(PHI, b, v):
+        ln_beta_i = b[..., None, :].expand(*PHI.shape[:-1], cfg.k)
+        return ln_beta_i if v is None else ln_beta_i + PHI @ v
+
+    return PHI, ln_n, per_set(noise, PHI.dim() - 2 if alone else 0, PHI,
+                              params.b, params.v)

@@ -3,12 +3,16 @@ float64 on the CPU: three restarts of VL, and of VC with full input noise, on
 a seeded photo-z problem (400 rows: 240 training, 80 validation; m=8, 15
 iterations).
 
-gpz_tpu trains the restarts as one vmapped program and the port one after
-another; each restart is the same optimization, so they take the same
-branches (equal iterations and evaluations per restart, the same best
-restart). The tolerances are tests/test_torch_train.py's: validation scores
-within TRACE (measured 0.011 of it for VC), parameters within TRAINED,
-predictions within PREDICTED.
+gpz_tpu trains the restarts as one vmapped program and the port as one
+lockstep optim.minimize_batched; each restart is the same optimization, so
+they take the same branches (equal iterations and evaluations per restart,
+the same best restart). Every restart of the lockstep run is also held to
+itself trained alone by optim.minimize (the restarts in turn): equal
+iterations, evaluations and status, and x, x_best and the score within
+TRACE (the lockstep evaluation gives each restart the bits of a lone one,
+so they are equal here). The tolerances are tests/test_torch_train.py's:
+validation scores within TRACE (measured 0.011 of it for VC), parameters
+within TRAINED, predictions within PREDICTED.
 """
 
 import numpy as np
@@ -21,6 +25,11 @@ from gpz_tpu.data import synthetic_sdss
 from gpz_tpu.ensemble import fit_ensemble as jax_fit_ensemble
 
 import gpz_tpu_torch
+from gpz_tpu_torch import datautils
+from gpz_tpu_torch import ensemble as tensemble
+from gpz_tpu_torch import model as tmodel
+from gpz_tpu_torch.objective import holdout_metrics
+from gpz_tpu_torch.optim import minimize
 from gpz_tpu_torch.params import FIELDS
 
 from test_torch_train import PREDICTED, TRACE, TRAINED
@@ -45,18 +54,54 @@ def kwargs(case):
 
 @pytest.fixture(scope="module", params=CASES)
 def fitted(request):
-    """(case, port's (model, info), gpz_tpu's (model, info))."""
+    """(case, port's (model, info), gpz_tpu's (model, info), the port's
+    lanes: the MinimizeResult of each restart)."""
     case = request.param
     X, Y = problem()[:2]
     method = case[:2]
-    port = gpz_tpu_torch.fit_ensemble(X, Y, method, M, device="cpu",
-                                      **kwargs(case))
+    lanes = []
+    batched = tensemble.minimize_batched
+
+    def captured(*args, **kw):
+        lanes.extend(batched(*args, **kw))
+        return lanes
+
+    tensemble.minimize_batched = captured
+    try:
+        port = gpz_tpu_torch.fit_ensemble(X, Y, method, M, device="cpu",
+                                          **kwargs(case))
+    finally:
+        tensemble.minimize_batched = batched
     ref = jax_fit_ensemble(X, Y, method, M, **kwargs(case))
-    return case, port, ref
+    return case, port, ref, lanes
+
+
+def alone(case, r):
+    """Restart r trained alone: init(seed=SEED + r), then minimize on
+    fit_ensemble's float64 training rows, scored on its validation rows."""
+    X, Y, psi, tr, va, _ = problem()
+    psi = psi if case == "VC-psi" else None
+    init = gpz_tpu_torch.init(X, Y, case[:2], M, psi=psi, training=tr,
+                              seed=SEED + r, dtype="float64", device="cpu")
+    cfg = init.cfg
+    Xn = (X - init.muX[None, :]) / init.sdX[None, :]
+    Yc = Y[:, None] - init.muY[None, :]
+    psi_c = datautils.fix_psi(psi, len(Y), init.sdX, cfg.full_cov)
+    data = [tmodel._make_dataset(Xn, Yc, psi_c, np.ones(len(Y)), rows,
+                                 torch.float64, "cpu") for rows in (tr, va)]
+    flat0, unravel = init.last.params.flatten()
+
+    def score_fn(flat, aux):
+        rmse, ll = holdout_metrics(unravel(flat), aux.w, data[1], cfg,
+                                   complete=True)
+        return ll, {"valid_rmse": rmse, "valid_ll": ll}
+
+    return minimize(tmodel._objective(unravel, data[0], cfg, True), flat0,
+                    max_iter=ITERS, score_fn=score_fn)
 
 
 def test_restart_scores_and_counts_equal_gpz_tpu(fitted):
-    _, (model, info), (jmodel, jinfo) = fitted
+    _, (model, info), (jmodel, jinfo), _ = fitted
     assert info is model.fit_info
     assert set(info) == set(jinfo)
     np.testing.assert_allclose(info["restart_scores"],
@@ -70,7 +115,7 @@ def test_restart_scores_and_counts_equal_gpz_tpu(fitted):
 
 
 def test_best_and_last_equal_gpz_tpu(fitted):
-    case, (model, _), (jmodel, _) = fitted
+    case, (model, _), (jmodel, _), _ = fitted
     assert model.last.score == jmodel.last.score == -np.inf
     np.testing.assert_allclose(model.best.score, jmodel.best.score, **TRACE)
     for which in ("best", "last"):
@@ -88,6 +133,22 @@ def test_best_and_last_equal_gpz_tpu(fitted):
         np.testing.assert_allclose(getattr(pred, k),
                                    np.asarray(getattr(jpred, k)), err_msg=k,
                                    **PREDICTED)
+
+
+@pytest.mark.parametrize("restart", range(RESTARTS))
+def test_every_restart_equals_itself_trained_alone(fitted, restart):
+    case, (model, info), _, lanes = fitted
+    lane, one = lanes[restart], alone(case, restart)
+    assert (lane.iterations, lane.fun_evals, lane.status) == (
+        one.iterations, one.fun_evals, one.status)
+    assert (info["iterations"][restart], info["fun_evals"][restart]) == (
+        one.iterations, one.fun_evals)
+    for key in ("x", "x_best"):
+        np.testing.assert_allclose(getattr(lane, key).numpy(),
+                                   getattr(one, key).numpy(), err_msg=key,
+                                   **TRACE)
+    np.testing.assert_allclose(info["restart_scores"][restart],
+                               one.best_score, **TRACE)
 
 
 def test_mesh_raises_and_names_the_parallel_slice():

@@ -251,6 +251,42 @@ def test_cpu_backward_launches_nothing():
     assert (vc_phi.LAUNCHES_FWD, vc_phi.LAUNCHES_BWD) == before
 
 
+@pytest.mark.parametrize("sets", [2, 3])
+def test_sets_of_bases_have_the_gradient_of_each_set_alone(sets):
+    """Bases joined from `sets` parameter sets (m = 3 sets x 4 bases): the
+    function's gradient through vc_lnphi_complete(..., sets), and
+    vc_lnphi_bwd(..., sets), equal each set's call alone bit for bit (on the
+    CPU each set runs the plain twins as alone; on the GPU the kernel plans
+    its sums per set, checked by chip_smoke.py phase 13)."""
+    arrays, g = bwd_case(12 + sets, 40, 3, 4 * sets)
+    X, psi, P, Sigma, logdet = map(torch.from_numpy, arrays)
+    gt = torch.from_numpy(g)
+    leaves = [t.clone().requires_grad_(True) for t in (P, Sigma, logdet)]
+    out = vc_phi.vc_lnphi_complete(X, psi, *leaves, sets)
+    joined = torch.autograd.grad(out, leaves, gt)
+    direct = vc_phi.vc_lnphi_bwd(X, psi, P, Sigma, gt, sets)
+    for s in range(sets):
+        cols = slice(4 * s, 4 * s + 4)
+        one = [t[cols].clone().requires_grad_(True)
+               for t in (P, Sigma, logdet)]
+        out1 = vc_phi.vc_lnphi_complete(X, psi, *one)
+        assert torch.equal(out[:, cols], out1)
+        alone = torch.autograd.grad(out1, one, gt[:, cols].contiguous())
+        for a, b in zip(joined, alone):
+            assert torch.equal(a[cols], b)
+        for a, b in zip(direct, alone):
+            assert torch.equal(a[cols], b)
+
+
+def test_sets_must_divide_the_bases():
+    arrays, g = bwd_case(14, 12, 3, 6)
+    X, psi, P, Sigma, logdet = map(torch.from_numpy, arrays)
+    with pytest.raises(ValueError, match="6 bases are not 4 equal sets"):
+        vc_phi.vc_lnphi_complete(X, psi, P, Sigma, logdet, 4)
+    with pytest.raises(ValueError, match="6 bases are not 0 equal sets"):
+        vc_phi.vc_lnphi_bwd(X, psi, P, Sigma, torch.from_numpy(g), 0)
+
+
 def test_backward_refuses_a_cotangent_of_the_wrong_shape():
     arrays, g = bwd_case(11, 12, 3, 4)
     args = tuple(map(torch.from_numpy, arrays[:4]))

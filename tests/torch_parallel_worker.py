@@ -58,7 +58,7 @@ DIST_ROWS, UNEVEN_ROWS = 64, 63
 # the ensemble step on the (restart 2, data 2) grid: R restarts, lr
 ENSEMBLE = ("VD", False, 32, 7, 4, 1e-3)
 # fit_ensemble over the grid: rows, method, m, restarts, iterations, seed
-FIT = (200, "VC", 6, 2, 10, 3)
+FIT = (200, "VC", 6, 4, 10, 3)
 # the sampler cases of tests/test_collective_adapt.py: chains per rank,
 # warmup, draws, leapfrog steps
 ADAPT = (2, 300, 400, 16)
