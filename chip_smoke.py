@@ -173,6 +173,29 @@ Phases, each printing its own lines; any failure exits non-zero:
                predict's batches) equal what its evaluations and batches
                imply, and the pair is held to plain at every shape it
                launched
+20. scale      BASELINE.json configs[4]'s per-card problem
+               (make_torch_port_golden.scale_problem: synthetic_sdss(
+               1,120,000, seed=3), psi = errs**2; 1,000,000 rows train,
+               100,000 validate): VC m=1000, d=5, heteroscedastic, psi
+               (n, d, d), float64. (a) init on the card: host seconds, peak
+               RSS, device peak memory; the length scales against gpz_tpu's
+               expression evaluated unblocked on the host; (b) the 20,000-row
+               sub-problem against tests/data/torch_port_golden_scale.npz
+               within SCALE_TOL: init, nlog_ml and its gradient on 8,192 rows,
+               the predictions of 16 complete rows and 4 rows with NaNs (the
+               coverage guard's readings and escalations as JAX's), 3
+               training iterations; (c) train for SCALE_ITERS iterations at
+               full size: every iteration's f, evaluations and seconds per
+               evaluation, f finite and non-increasing, the device peak
+               memory under the card's; (d) save_model / load_model, the
+               loaded model serves the last 20,000 rows complete and 1,000
+               of them with NaNs (inject_missing): rows/s, least coverage,
+               escalations and their seconds; the launches of the pair by
+               shape held to what the run and the budgets imply
+               (expected_sites); (e) the kernel pair against plain at every
+               shape (a)-(d) launched: at (10**6 x 1000) plain runs once in
+               row chunks, out of the timing loop. Then one evaluation at
+               full size under the profiler
 
 With --profile, one warm gradient evaluation at the training shape is also
 traced with torch.profiler and its kernel table printed.
@@ -261,6 +284,10 @@ PARALLEL_BACKEND = "nccl"
 RANK_TIMEOUT_S = 300.0
 PARALLEL_LR = 1e-3
 PAR_WARMUP, PAR_DRAWS, PAR_CHAINS = 60, 60, 2
+
+# phase 20: training iterations of the scale configuration (VC m=1000 on
+# 1,000,000 rows; make_torch_port_golden.scale_problem)
+SCALE_ITERS = 25
 
 # H100 SXM peaks for the bounds (NVIDIA's data sheet): device memory
 # 3.35 TB/s; FP64 34 TFLOP/s and FP32 67 TFLOP/s outside the tensor cores
@@ -447,19 +474,26 @@ def compare_backward(name, args, g, tol, sets=1):
 
 
 @contextlib.contextmanager
-def recording(module: str, name: str, sites: dict):
+def recording(module: str, name: str, sites: dict, host_above=None):
     """Record the calls of a kernel wrapper, module.<name>, while the block
     runs: sites {(rows, bases): [calls, the arguments of the first]}, in the
-    order the shapes were first launched."""
+    order the shapes were first launched. An argument of more than
+    `host_above` elements is kept as a copy on the host (`moved` brings it
+    back), so that recording holds no (n, m) cotangent on the card."""
     mod = importlib.import_module(module)
     real = getattr(mod, name)
+
+    def keep(a):
+        if not hasattr(a, "detach"):
+            return a
+        if host_above is not None and a.numel() > host_above:
+            return a.detach().to("cpu")
+        return a.detach().clone()
 
     def record(*args):
         shape = (args[0].shape[0], args[2].shape[0])
         if shape not in sites:
-            sites[shape] = [0, tuple(
-                a.detach().clone() if hasattr(a, "detach") else a
-                for a in args)]
+            sites[shape] = [0, tuple(keep(a) for a in args)]
         sites[shape][0] += 1
         return real(*args)
 
@@ -477,12 +511,14 @@ def moved(args, device) -> tuple:
 
 
 @contextlib.contextmanager
-def pair_recorded(fwd_sites: dict, bwd_sites: dict):
+def pair_recorded(fwd_sites: dict, bwd_sites: dict, host_above=None):
     """Record the design-matrix kernel pair's calls from the objective while
     the block runs: the forward where phi calls it, the backward where the
     autograd function calls it (with the cotangent it is given)."""
-    with recording("gpz_tpu_torch.phi", "vc_lnphi_complete", fwd_sites), \
-            recording("gpz_tpu_torch.ops.vc_phi", "vc_lnphi_bwd", bwd_sites):
+    with recording("gpz_tpu_torch.phi", "vc_lnphi_complete", fwd_sites,
+                   host_above), \
+            recording("gpz_tpu_torch.ops.vc_phi", "vc_lnphi_bwd", bwd_sites,
+                      host_above):
         yield
 
 
@@ -1376,6 +1412,525 @@ def phase_demos(device=None) -> tuple:
                              key="launches"))
     bwd = compare_bwd_sites("demo-photoz", bwd_sites, "demo run")
     return tuple(total), fwd, bwd
+
+
+def host_peak(fn) -> tuple:
+    """(fn(), the peak of host memory that Python and NumPy allocated while
+    fn ran, in bytes, by tracemalloc; memory held before fn is not in it)."""
+    import tracemalloc
+
+    tracemalloc.start()
+    try:
+        out = fn()
+        peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    return out, peak
+
+
+def compare_big(name, args, g, sets=1, rows=50_000) -> tuple:
+    """The kernel pair against plain at a shape past 10**8 pairs, where the
+    plain versions take seconds and their (n, m) outputs gigabytes: the
+    forward's output held to plain a chunk of `rows` rows at a time, the
+    backward twice (bit-equal) against the plain backward once (not against
+    autograd through plain, whose graph would hold every row block's
+    (rows, m, d, d) systems). Plain runs once each way, timed by CUDA
+    events, out of the kernels' timing loops. Returns (forward record,
+    backward record)."""
+    import torch
+    from gpz_tpu_torch.ops import vc_phi
+
+    X, psi, P, Sigma, lds = args[:5]
+    n, m, d = X.shape[0], P.shape[0], X.shape[1]
+    rtol, atol = KERNEL_TOL["trained"]
+    got = vc_phi.vc_lnphi_complete(*args[:5])
+    plain_ms, max_abs, worst = 0.0, 0.0, 0.0
+    for r0 in range(0, n, rows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = vc_phi.vc_lnphi_plain(X[r0:r0 + rows], psi[r0:r0 + rows], P,
+                                     Sigma, lds)
+        end.record()
+        end.synchronize()
+        plain_ms += start.elapsed_time(end)
+        part = got[r0:r0 + rows]
+        fin = torch.isfinite(want)
+        check(bool((torch.isfinite(part) == fin).all()),
+              f"{name}: non-finite entries differ from the plain version")
+        err = (part - want).abs()[fin]
+        max_abs = max(max_abs, float(err.max()))
+        worst = max(worst, float((err / (atol + rtol * want.abs()[fin]))
+                                 .max()))
+    del got, want, part
+    check(worst <= 1.0, f"{name}: kernel disagrees with the plain version "
+          f"beyond rtol={rtol}, atol={atol}")
+    few = dict(trials=3, calls=2, warmup=1)
+    fwd = {"max_abs_err": max_abs, "plain_ms": plain_ms,
+           "ms": median_ms(lambda: vc_phi.vc_lnphi_complete(*args[:5]),
+                           **few)}
+    b = bound("fwd", n, m, d, "float64")
+    print(f"kernel {name}: {shape_line(args)} max_abs_err={max_abs:.3e} "
+          f"(err/bound {worst:.3f}, plain in chunks of {rows} rows) kernel "
+          f"{fwd['ms']:.4f} ms, {fwd['ms'] / b['bound_ms']:.2f}x its bound "
+          f"{b['bound_ms']:.5f} ms by {b['bound_by']}; plain {plain_ms:.1f} "
+          "ms (once)")
+
+    got = vc_phi.vc_lnphi_bwd(X, psi, P, Sigma, g, sets)
+    again = vc_phi.vc_lnphi_bwd(X, psi, P, Sigma, g, sets)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain = vc_phi.vc_lnphi_bwd_plain(X, psi, P, Sigma, g, sets)
+    end.record()
+    end.synchronize()
+    check(all(torch.equal(a, b_) for a, b_ in zip(got, again)),
+          f"{name}: two backward launches on the same inputs differ in "
+          "their bits")
+    check(torch.equal(got[1], got[1].transpose(1, 2)),
+          f"{name}: dSigma's triangles differ")
+    rtol, atol = KERNEL_BWD_TOL["trained"]
+    bmax, bworst = 0.0, 0.0
+    for part, a, w in zip(("dP", "dSigma"), got, plain):
+        check(bool(torch.isfinite(a).all() and torch.isfinite(w).all()),
+              f"{name}: non-finite {part}")
+        err = float((a - w).abs().max())
+        ratio = err / (atol + rtol * float(w.abs().max()))
+        bmax, bworst = max(bmax, err), max(bworst, ratio)
+        check(ratio <= 1.0, f"{name}: backward {part} disagrees with plain "
+              f"beyond rtol={rtol}, atol={atol} of its largest entry "
+              f"(max_abs_err {err:.3e})")
+    bwd = {"max_abs_err": bmax, "plain_ms": start.elapsed_time(end),
+           "ms": median_ms(lambda: vc_phi.vc_lnphi_bwd(X, psi, P, Sigma, g,
+                                                       sets), **few)}
+    b = bound("bwd", n, m, d, "float64")
+    print(f"kernel-bwd {name}: {shape_line(args)} max_abs_err={bmax:.3e} "
+          f"(err/bound {bworst:.3f}) vs plain, two launches bit-identical; "
+          f"kernel {bwd['ms']:.4f} ms, {bwd['ms'] / b['bound_ms']:.2f}x its "
+          f"bound {b['bound_ms']:.5f} ms by {b['bound_by']}; plain "
+          f"{bwd['plain_ms']:.1f} ms (once)")
+    return fwd, bwd
+
+
+def phase_scale(device=None) -> tuple:
+    """20. BASELINE.json configs[4]'s per-card problem through the entry
+    points: VC m=1000, d=5, k=1, heteroscedastic, psi (n, d, d), float64, on
+    make_torch_port_golden.scale_problem's 1,000,000 training and 100,000
+    validation rows. (a) init on the card: host seconds, host memory, device
+    peak memory; its length scales held to gpz_tpu's expression evaluated
+    unblocked on the host (SCALE_TOL). (b) the sub-problem against
+    tests/data/torch_port_golden_scale.npz: init on its 20,000 rows, the
+    objective and gradient on 8,192 rows, the predictions of 16 complete
+    rows and 4 rows with NaNs at its init point, 3 iterations of training.
+    (c) train for SCALE_ITERS iterations at full size: the trace, status,
+    evaluations and seconds per evaluation of every iteration, device peak
+    memory. (d) save_model / load_model, then the loaded model serves the
+    20,000 complete rows and the 1,000 rows with NaNs: rows/s, coverage,
+    escalations; the predict sites' launches held to expected_sites. (e)
+    the kernel pair against plain at every shape (a)-(d) launched. Then one
+    evaluation at full size under the profiler. Returns ((fwd, bwd)
+    launches of (a)-(d), forward sites, backward sites)."""
+    import resource
+
+    import torch
+    import gpz_tpu_torch
+    from gpz_tpu_torch import datautils
+    from gpz_tpu_torch.data import synthetic_sdss
+    from gpz_tpu_torch.model import _make_dataset
+    from gpz_tpu_torch.optim import lbfgs
+    from make_torch_port_golden import (
+        OUTPUTS, SCALE_M, SCALE_OBJECTIVE_ROWS, SCALE_SUB,
+        SCALE_TOL, SCALE_TRACE_ITERS, load_golden_scale, scale_nan_picks,
+        scale_problem,
+    )
+
+    predict_mod = importlib.import_module("gpz_tpu_torch.predict")
+    model_mod = importlib.import_module("gpz_tpu_torch.model")
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0) if device is None else torch.device(device)
+    f64 = torch.float64
+    gold = load_golden_scale()
+    X, Y, psi, tr, va, served, (pos, Xm) = scale_problem(synthetic_sdss)
+    psi_m = psi[served[pos]]
+    n_tr, n_va = int(tr.sum()), int(va.sum())
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    fwd_sites, bwd_sites, pred_sites = {}, {}, {}
+    pred_calls = []
+
+    def serve(X_, model_, psi_):
+        (pred, sec), calls = moments_calls(
+            lambda: timed_predict(X_, model_, psi_))
+        pred_calls.extend(calls)
+        return pred, sec, calls
+
+    torch.cuda.synchronize()
+    reset_launches()
+    with pair_recorded(fwd_sites, bwd_sites, host_above=10**8), recording(
+            "gpz_tpu_torch.predict", "vc_lnphi_complete", pred_sites):
+        # (a) init at full size
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model, init_host = host_peak(lambda: gpz_tpu_torch.init(
+            X, Y, "VC", SCALE_M, heteroscedastic=True, training=tr, psi=psi,
+            seed=1, dtype="float64", device=device))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_dev = torch.cuda.max_memory_allocated()
+        check(model.last.params.P.device == dev,
+              "scale: init did not build the model on the card")
+
+        # gpz_tpu.init's length-scale heuristic as it writes it: one (n, m)
+        # distance matrix, unblocked, on the host (gpz_tpu/model.py:291-295)
+        def unblocked():
+            Xtr = ((X - model.muX[None, :]) / model.sdX[None, :])[tr]
+            mu_p, cov_p, _ = datautils.pca_whiten_np(Xtr)
+            Xl = datautils.fill_linear_np(Xtr, mu_p, cov_p)
+            P = model.last.params.P.cpu().numpy()
+            D = np.abs((Xl**2).sum(1)[:, None] + (P**2).sum(1)[None, :]
+                       - 2.0 * Xl @ P.T)
+            return np.sqrt(0.5 * SCALE_M ** (1.0 / Xl.shape[1])
+                           / D.mean(axis=0))
+
+        t0 = time.perf_counter()
+        gamma_ref, ref_host = host_peak(unblocked)
+        ref_s = time.perf_counter() - t0
+        G = model.last.params.gamma.cpu().numpy()
+        gamma_got = np.einsum("mii->mi", G)
+        off = np.abs(G - np.einsum("mi,ij->mij", gamma_got, np.eye(G.shape[1])))
+        err_g = float(np.max(np.abs(gamma_got - gamma_ref[:, None])))
+        print(f"scale-init: VC m={SCALE_M} on {n_tr} training rows of "
+              f"{len(Y)} in {init_s:.3f} s (host memory allocated at its "
+              f"peak {init_host / 1e9:.3f} GB, tracemalloc; device peak "
+              f"{init_dev / 2**30:.3f} GiB, the posterior's one forward at "
+              f"({n_tr} x {SCALE_M})); gpz_tpu's expression unblocked on the "
+              f"host {ref_s:.3f} s, {ref_host / 1e9:.3f} GB at its peak; "
+              f"length scales blocked vs unblocked max_abs {err_g:.3e} of "
+              f"{np.abs(gamma_ref).max():.3e} (bit-equal: "
+              f"{bool(err_g == 0.0)}); process peak RSS "
+              f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6:.3f}"
+              " GB in its lifetime")
+        check(err_g <= SCALE_TOL["init.flat"] and float(off.max()) == 0.0,
+              "scale-init: length scales differ from gpz_tpu's unblocked "
+              f"expression beyond {SCALE_TOL['init.flat']}")
+
+        # (b) the sub-problem against the golden file
+        sub = slice(0, SCALE_SUB)
+        t0 = time.perf_counter()
+        sub_model = gpz_tpu_torch.init(X[sub], Y[sub], "VC", SCALE_M,
+                                       heteroscedastic=True, psi=psi[sub],
+                                       seed=1, dtype="float64",
+                                       device=device)
+        flat_s, unravel_s = sub_model.last.params.flatten()
+        err0 = float(np.max(np.abs(flat_s.cpu().numpy()
+                                   - gold["sub.init.flat"])))
+        print(f"scale-sub: init on {SCALE_SUB} rows, flat parameters vs "
+              f"JAX's max_abs {err0:.3e}")
+        check(err0 <= SCALE_TOL["sub.init.flat"], "scale-sub: init differs "
+              f"from the JAX package's beyond {SCALE_TOL['sub.init.flat']}")
+        rows = np.zeros(SCALE_SUB, bool)
+        rows[:SCALE_OBJECTIVE_ROWS] = True
+        Xn = (X[sub] - sub_model.muX[None, :]) / sub_model.sdX[None, :]
+        Yc = Y[sub, None] - sub_model.muY[None, :]
+        psi_c = datautils.fix_psi(psi[sub], SCALE_SUB, sub_model.sdX, True)
+        data_o = _make_dataset(Xn, Yc, psi_c, np.ones(SCALE_SUB), rows, f64,
+                               dev)
+        nlml, grad = objective_at(
+            torch.as_tensor(gold["sub.init.flat"], device=dev), unravel_s,
+            data_o, sub_model.cfg)
+        del data_o
+        within(f"scale-sub: nlml on {SCALE_OBJECTIVE_ROWS} rows "
+               f"{nlml:.12f} (JAX {float(gold['init.nlml']):.12f})",
+               nlml, gold["init.nlml"], SCALE_TOL["init.nlml"])
+        within(f"scale-sub: gradient on {SCALE_OBJECTIVE_ROWS} rows",
+               grad, gold["init.grad"], SCALE_TOL["init.grad"])
+        c_rows = served[:len(gold["complete.mu"])]
+        pc, _, _ = serve(X[c_rows], sub_model, psi[c_rows])
+        for k_ in OUTPUTS:
+            within(f"scale-sub: {len(c_rows)} complete rows {k_}",
+                   getattr(pc, k_), gold[f"complete.{k_}"],
+                   SCALE_TOL["complete"][k_])
+        picks = scale_nan_picks(Xm)
+        check(np.array_equal(picks, gold["missing.picks"]),
+              "scale-sub: golden rows with NaNs differ from this draw")
+        pm, _, calls = serve(Xm[picks], sub_model, psi_m[picks])
+        for k_ in OUTPUTS:
+            within(f"scale-sub: {len(picks)} rows with NaNs {k_}",
+                   getattr(pm, k_), gold[f"missing.{k_}"],
+                   SCALE_TOL["missing"][k_])
+        # the guard's reading of each pattern group (np.unique's order, as
+        # both packages' predict groups rows) and its escalation
+        _, group = np.unique(~np.isnan(Xm[picks]), axis=0,
+                             return_inverse=True)
+        first = [int(np.where(group.ravel() == g_)[0][0])
+                 for g_ in range(group.max() + 1)]
+        cov_jax = gold["missing.coverage"][first]
+        esc_jax = gold["missing.escalated"][first]
+        cov_got = np.array([c[3] for c in calls if c[3] is not None])
+        esc_got = np.array([c[2] == SCALE_M for c in calls
+                            if c[3] is None])
+        print(f"scale-sub: coverage of the top {predict_mod.MIX_TOPL} per "
+              f"group {np.round(cov_got, 9).tolist()} (JAX "
+              f"{np.round(cov_jax, 9).tolist()}), escalated "
+              f"{int(esc_got.sum())} of {len(cov_got)} (JAX "
+              f"{int(esc_jax.sum())})")
+        check(cov_got.shape == cov_jax.shape
+              and float(np.max(np.abs(cov_got - cov_jax))) <= 1e-9
+              and int(esc_got.sum()) == int(esc_jax.sum()),
+              "scale-sub: the coverage guard's readings or escalations "
+              "differ from JAX's")
+        sub_fit = gpz_tpu_torch.train(
+            sub_model, X[sub], Y[sub], psi=psi[sub],
+            max_iter=SCALE_TRACE_ITERS, max_attempts=MAX_ATTEMPTS,
+            verbose=False).fit_info
+        k = len(gold["trace.f"])
+        check(sub_fit["iterations"] + 1 == k, "scale-sub: "
+              f"{sub_fit['iterations']} iterations, JAX {k - 1}")
+        within(f"scale-sub: f at iterations 0..{k - 1} "
+               f"{np.round(sub_fit['trace']['f'][:k], 10).tolist()}",
+               sub_fit["trace"]["f"][:k], gold["trace.f"],
+               SCALE_TOL["trace.f"])
+        check(np.array_equal(sub_fit["trace"]["fevals"][:k],
+                             gold["trace.fevals"]),
+              "scale-sub: evaluation counts differ from JAX's")
+        sub_evals = sub_fit["fun_evals"]
+        print(f"scale-sub: evaluations {sub_fit['trace']['fevals'].tolist()}"
+              f" (JAX {gold['trace.fevals'].tolist()}), status "
+              f"{sub_fit['status']}; (a)-(b) in "
+              f"{time.perf_counter() - t0:.1f} s")
+        del sub_model
+
+        # (c) training at full size, every evaluation timed
+        eval_s = []
+        real_objective = model_mod._objective
+
+        def timed_objective(*a):
+            fun = real_objective(*a)
+
+            def timed(flat):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                out = fun(flat)
+                torch.cuda.synchronize()
+                eval_s.append(time.perf_counter() - t1)
+                return out
+            return timed
+
+        before_f, before_b = site_counts(fwd_sites), site_counts(bwd_sites)
+        model_mod._objective = timed_objective
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t0 = time.perf_counter()
+            fitted = gpz_tpu_torch.train(
+                model, X, Y, training=tr, validation=va, psi=psi,
+                max_iter=SCALE_ITERS, max_attempts=MAX_ATTEMPTS,
+                verbose=False)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+        finally:
+            model_mod._objective = real_objective
+        peak, reserved = (torch.cuda.max_memory_allocated(),
+                          torch.cuda.max_memory_reserved())
+        fit = fitted.fit_info
+        trace = fit["trace"]
+        n_it, evals = fit["iterations"], fit["fun_evals"]
+        fev = np.asarray(trace["fevals"])
+        for i in range(n_it + 1):
+            lo = int(fev[i - 1]) if i else 0
+            secs = eval_s[lo:int(fev[i])]
+            print(f"scale-train: iteration {i}: f {trace['f'][i]:.10f}, "
+                  f"evaluations {int(fev[i])} (+{len(secs)}), seconds per "
+                  f"evaluation {[round(x_, 4) for x_ in secs]}, valid ll "
+                  f"{trace['extras']['valid_ll'][i]:.6f}")
+        check(all(np.isfinite(a).all() for a in (
+            trace["f"], trace["opt_cond"], trace["step"], trace["score"],
+            *trace["extras"].values())), "scale-train: non-finite trace")
+        check(bool(np.all(np.diff(trace["f"]) <= 0)),
+              "scale-train: f increased over an accepted iteration")
+        check(n_it == SCALE_ITERS or fit["status"] in (
+            lbfgs.STATUS_OPTIMAL, lbfgs.STATUS_STEP_TOO_SMALL,
+            lbfgs.STATUS_EARLY_STOP),
+              f"scale-train: {n_it} iterations, status {fit['status']}")
+        check(len(eval_s) == evals, "scale-train: timed evaluations differ "
+              "from the run's")
+        med = float(np.median(eval_s[1:] if len(eval_s) > 1 else eval_s))
+        print(f"scale-train: {n_it} iterations, {evals} evaluations, status "
+              f"{fit['status']} in {train_s:.3f} s ({train_s / evals:.4f} s "
+              f"per evaluation with scoring and resolving; evaluations alone "
+              f"median {med:.4f} s, first {eval_s[0]:.4f} s with the "
+              f"recording's copy of its ({n_tr}, {SCALE_M}) cotangent to the "
+              f"host, synchronized); "
+              f"final nlml {fit['final_nlml']:.10f}; device peak "
+              f"{peak / 2**30:.3f} GiB allocated, {reserved / 2**30:.3f} GiB "
+              f"reserved, of {total_mem / 2**30:.3f} GiB")
+        check(reserved < total_mem, "scale-train: device memory reached the "
+              "card's")
+        after_f, after_b = site_counts(fwd_sites), site_counts(bwd_sites)
+        big, val = (n_tr, SCALE_M), (n_va, SCALE_M)
+        got_f = {s_: after_f.get(s_, 0) - before_f.get(s_, 0)
+                 for s_ in after_f}
+        got_b = {s_: after_b.get(s_, 0) - before_b.get(s_, 0)
+                 for s_ in after_b}
+        want_f = {big: evals + 4, val: n_it + 1}
+        check({s_: c_ for s_, c_ in got_f.items() if c_} == want_f
+              and {s_: c_ for s_, c_ in got_b.items() if c_} == {big: evals},
+              f"scale-train: launches by shape {got_f}, {got_b}; the path "
+              f"implies {want_f}, {{{big}: {evals}}}")
+
+        # (d) checkpoint round trip, then serving from the loaded copy
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "scale.npz")
+            t0 = time.perf_counter()
+            gpz_tpu_torch.save_model(fitted, path)
+            save_s = time.perf_counter() - t0
+            size = os.path.getsize(path)
+            t0 = time.perf_counter()
+            loaded = gpz_tpu_torch.load_model(path, device=device)
+            load_s = time.perf_counter() - t0
+        check(loaded.best.params.P.device == model.last.params.P.device
+              and torch.equal(loaded.best.params.flatten()[0],
+                              fitted.best.params.flatten()[0])
+              and torch.equal(loaded.best.post.iSigma_w,
+                              fitted.best.post.iSigma_w),
+              "scale-checkpoint: the loaded model differs from the saved")
+        print(f"scale-checkpoint: {size} bytes, save {save_s:.3f} s, load "
+              f"{load_s:.3f} s, best parameters and posterior bit-equal")
+        del model, fitted
+        esc_s = []
+        real_moments = predict_mod.predict_moments_full
+
+        def timed_moments(*a, **kw):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = real_moments(*a, **kw)
+            torch.cuda.synchronize()
+            if kw.get("mix_topl") == SCALE_M:
+                esc_s.append(time.perf_counter() - t1)
+            return out
+
+        predict_mod.predict_moments_full = timed_moments
+        try:
+            pc, sec_c, calls_c = serve(X[served], loaded, psi[served])
+            pm, sec_m, calls_m = serve(Xm, loaded, psi_m)
+        finally:
+            predict_mod.predict_moments_full = real_moments
+        for label, pred, n_ in (("complete", pc, len(served)),
+                                ("with NaNs", pm, len(Xm))):
+            check(all(np.isfinite(getattr(pred, k_)).all()
+                      for k_ in OUTPUTS + ("phi",))
+                  and pred.mu.shape == (n_, 1) and pred.sigma.min() > 0
+                  and pred.nu.min() >= 0 and pred.gamma.min() >= 0,
+                  f"scale-serve: rows {label}: non-finite or negative")
+        cov = [c[3] for c in calls_m if c[3] is not None]
+        n_esc = sum(1 for c in calls_m if c[2] == SCALE_M)
+        check(n_esc == sum(1 for c_ in cov
+                           if c_ < predict_mod.MIX_COVERAGE_MIN),
+              "scale-serve: escalations differ from the guarded batches "
+              "below MIX_COVERAGE_MIN")
+        print(f"scale-serve: {len(served)} complete rows in {sec_c:.3f} s "
+              f"({len(served) / sec_c:.1f} rows/s, {len(calls_c)} batches); "
+              f"{len(Xm)} rows with NaNs in {sec_m:.3f} s "
+              f"({len(Xm) / sec_m:.1f} rows/s, {len(calls_m)} moment calls); "
+              f"top-{predict_mod.MIX_TOPL} coverage over {len(cov)} guarded "
+              f"batches: least {min(cov):.9f}; {n_esc} escalated to the "
+              f"exact {SCALE_M}-component sum, "
+              f"{[round(x_, 3) for x_ in esc_s]} s each")
+        want_pred = expected_sites(loaded.cfg, pred_calls)
+        check(site_counts(pred_sites) == want_pred, "scale-serve: predict "
+              f"launched {site_counts(pred_sites)}, the budgets imply "
+              f"{want_pred}")
+        sub_shape = (SCALE_SUB, SCALE_M)
+        want_all_f = {big: 1 + evals + 4, val: n_it + 1,
+                      sub_shape: 1 + sub_evals + 4,
+                      (SCALE_OBJECTIVE_ROWS, SCALE_M): 1}
+        want_all_b = {big: evals, sub_shape: sub_evals,
+                      (SCALE_OBJECTIVE_ROWS, SCALE_M): 1}
+        check(site_counts(fwd_sites) == want_all_f
+              and site_counts(bwd_sites) == want_all_b,
+              f"scale: objective sites {site_counts(fwd_sites)}, "
+              f"{site_counts(bwd_sites)}; the path implies {want_all_f}, "
+              f"{want_all_b}")
+    torch.cuda.synchronize()
+    got = launches()
+    want = (sum(want_all_f.values()) + sum(want_pred.values()),
+            sum(want_all_b.values()))
+    check(got == want, f"scale: launches {got}, the path implies {want}")
+    print(f"scale: main path (a)-(d) in {time.perf_counter() - t_phase:.1f} s"
+          f"; launches fwd/bwd {got} as the path implies: objective "
+          f"{want_all_f}, {want_all_b}; predict {want_pred}")
+    del pc, pm
+
+    # one warm evaluation at full size under the profiler, out of the count
+    Xn = (X - loaded.muX[None, :]) / loaded.sdX[None, :]
+    Yc = Y[:, None] - loaded.muY[None, :]
+    psi_c = datautils.fix_psi(psi, len(Y), loaded.sdX, True)
+    data_tr = _make_dataset(Xn, Yc, psi_c, np.ones(len(Y)), tr, f64, dev)
+    flat_b, unravel_b = loaded.best.params.astype(f64).flatten()
+
+    def evaluation(f_=flat_b):
+        return objective_at(f_, unravel_b, data_tr, loaded.cfg)
+
+    def peak_of(fn) -> tuple:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated(), held
+
+    # the device peak of one evaluation, and with lnN held as the objective
+    # held it before (until its Gram's forward ends)
+    obj_mod = importlib.import_module("gpz_tpu_torch.objective")
+    real_dm, real_terms = obj_mod.design_matrix, obj_mod._gram_terms
+    kept = []
+
+    def keeping_dm(*a, **kw):
+        out = real_dm(*a, **kw)
+        kept.append(out[1])
+        return out
+
+    def releasing_terms(*a, **kw):
+        out = real_terms(*a, **kw)
+        kept.clear()
+        return out
+
+    peak_eval, held = peak_of(evaluation)
+    obj_mod.design_matrix, obj_mod._gram_terms = keeping_dm, releasing_terms
+    try:
+        peak_kept, _ = peak_of(evaluation)
+    finally:
+        obj_mod.design_matrix, obj_mod._gram_terms = real_dm, real_terms
+    print(f"scale-memory: one evaluation at ({n_tr} x {SCALE_M}) peaks at "
+          f"{peak_eval / 2**30:.3f} GiB allocated ({held / 2**30:.3f} GiB "
+          f"held before it: data and models); with lnN held until the "
+          f"Gram's forward ends {peak_kept / 2**30:.3f} GiB")
+    profile_evaluation(evaluation, flat_b)
+    del data_tr, loaded
+    reset_launches()
+
+    # (e) the kernel pair against plain at every shape (a)-(d) launched
+    t0 = time.perf_counter()
+    fwd, bwd = {}, {}
+    big_f = fwd_sites.pop(big)
+    big_b = bwd_sites.pop(big)
+    args_b = moved(big_b[1], dev)
+    rec_f, rec_b = compare_big(f"scale-{n_tr}x{SCALE_M}", moved(big_f[1], dev),
+                               args_b[4], *args_b[5:])
+    del args_b
+    for rec, kind, count in ((rec_f, "fwd", big_f[0]),
+                             (rec_b, "bwd", big_b[0])):
+        rec.update(shape=list(big), launches=count,
+                   bound_ms=bound(kind, n_tr, SCALE_M, X.shape[1],
+                                  "float64")["bound_ms"])
+    fwd[f"scale-{n_tr}x{SCALE_M}"] = rec_f
+    bwd[f"scale-bwd-{n_tr}x{SCALE_M}"] = rec_b
+    fwd.update(compare_sites("scale", fwd_sites, "phase-20 run",
+                             key="launches"))
+    fwd.update(compare_sites("scale-predict", pred_sites, "phase-20 run",
+                             key="launches"))
+    bwd.update(compare_bwd_sites("scale", bwd_sites, "phase-20 run"))
+    print(f"scale: kernel pair vs plain at {len(fwd)} forward and {len(bwd)} "
+          f"backward shapes in {time.perf_counter() - t0:.1f} s")
+    return got, fwd, bwd
 
 
 def host_ms(fn) -> float:
@@ -2888,6 +3443,7 @@ def main(argv) -> int:
         model, X, Y, psi, tr, va, data_tr, trace["f"],
         train_s / evals * 1e3)
     new_paths["demos"], demo_fwd, demo_bwd = phase_demos()
+    new_paths["scale"], scale_fwd, scale_bwd = phase_scale()
     new_paths["convergence"] = conv_launches
     new_fwd = sum(f for f, _ in new_paths.values())
     new_bwd = sum(b for _, b in new_paths.values())
@@ -2904,9 +3460,9 @@ def main(argv) -> int:
         "max_abs_err": max(c["max_abs_err"] for c in (
             fwd_big, *serve_cases.values(), *mix_cases.values(),
             *ens_fwd.values(), *inf_fwd.values(), *par_fwd.values(),
-            *demo_fwd.values())),
+            *demo_fwd.values(), *scale_fwd.values())),
         "sites": {**serve_cases, **mix_cases, **ens_fwd, **inf_fwd,
-                  **par_fwd, **demo_fwd},
+                  **par_fwd, **demo_fwd, **scale_fwd},
         "shape": [n_, m_, d_, "float64"],
         "ms": fwd_big["ms"], "plain_ms": fwd_big["plain_ms"],
         **{k_: v for k_, v in bound("fwd", n_, m_, d_, "float64").items()
@@ -2921,8 +3477,8 @@ def main(argv) -> int:
                              **{k_: b for k_, (_, b) in new_paths.items()}},
         "max_abs_err": max(bwd_errs + [c["max_abs_err"] for c in (
             *ens_bwd.values(), *inf_bwd.values(), *par_bwd.values(),
-            *demo_bwd.values())]),
-        "sites": {**ens_bwd, **inf_bwd, **par_bwd, **demo_bwd},
+            *demo_bwd.values(), *scale_bwd.values())]),
+        "sites": {**ens_bwd, **inf_bwd, **par_bwd, **demo_bwd, **scale_bwd},
         "shape": [n_, m_, d_, "float64"],
         **bwd_rec["70000x100"],
         **{k_: v for k_, v in bound("bwd", n_, m_, d_, "float64").items()

@@ -19,16 +19,25 @@ csrc/vc_phi.cu (built with nvcc at first use), in training and at every site
 of prediction, the mixture sums of missing-data prediction included; on CPU
 tensors they run as the same functions in plain PyTorch.
 
-Also ported: multi-restart ensembles (`fit_ensemble`, restarts trained one
-after another on one device, `device=None` the CUDA device), the command line (`python -m gpz_tpu_torch
-train|predict|bench`, cli.py and bench.py), the native C++ host kernels
-(native/: the CSV reader, the host L-BFGS recursion, the modified Cholesky;
-built with g++ at first use) and the host optimizers (optim: `minimize_host`,
-`minimize_any` with its twelve methods, `check_gradient`).
+Also ported: multi-restart ensembles (`fit_ensemble`: the R restarts train
+as the lanes of one lockstep L-BFGS, `optim.minimize_batched`, each round one
+(n, R * m) launch of the design-matrix kernel pair for the restarts still
+running; `device=None` the CUDA device), the command line (`python -m
+gpz_tpu_torch train|predict|bench`, cli.py and bench.py), the native C++ host
+kernels (native/: the CSV reader, the host L-BFGS recursion, the modified
+Cholesky; built with g++ at first use), the host optimizers (optim:
+`minimize_host`, `minimize_any` with its twelve methods, `check_gradient`),
+posterior inference over the hyperparameters (inference/), sharded and
+multi-process training (parallel/) and the user's scripts (demos/,
+bench_convergence.py).
+
+The top-level names are gpz_tpu's (`Dataset` and the `linalg`, `metrics` and
+`datautils` modules among them) and the port's entry points beside them.
 """
 
 from gpz_tpu_torch.config import ModelConfig, PredictConfig, TrainConfig
 from gpz_tpu_torch.params import GPzParams
+from gpz_tpu_torch.dataset import Dataset
 from gpz_tpu_torch.model import (
     GPzModel, Prediction, init, predict, sample_weights, train,
 )
@@ -38,12 +47,14 @@ from gpz_tpu_torch.checkpoint import (
     load_model, save_model, train_with_checkpoints,
 )
 from gpz_tpu_torch.ensemble import fit_ensemble
+from gpz_tpu_torch import datautils, linalg, metrics
 
 __all__ = [
     "ModelConfig",
     "TrainConfig",
     "PredictConfig",
     "GPzParams",
+    "Dataset",
     "GPzModel",
     "Prediction",
     "init",
@@ -56,4 +67,7 @@ __all__ = [
     "save_model",
     "train_with_checkpoints",
     "fit_ensemble",
+    "linalg",
+    "metrics",
+    "datautils",
 ]

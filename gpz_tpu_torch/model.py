@@ -152,6 +152,28 @@ def _make_dataset(Xn, Yc, psi, omega, rows, dtype, device) -> Dataset:
     )
 
 
+#: rows of one block of init's length-scale heuristic: the (rows, m)
+#: distances of a block and their temporaries stay within a few hundred MB
+#: whatever n is (at n = 10**6 and m = 1000 one (n, m) float64 array is 8 GB)
+INIT_BLOCK_ROWS = 65536
+
+
+def _mean_sq_dist(Xl, P):
+    """mean over the rows of Xl (n, d) of |x - p_j|^2 for every center p_j
+    of P (m, d), as gpz_tpu.init computes it (|x|^2 + |p|^2 - 2 x.p, taken
+    absolute), over blocks of INIT_BLOCK_ROWS rows whose column sums add up
+    in block order. One block (n <= INIT_BLOCK_ROWS) is gpz_tpu's expression
+    and gives its bits; several round the matrix product and the sum per
+    block, ~1e-16 relative."""
+    p2 = (P**2).sum(1)[None, :]
+    total = np.zeros(P.shape[0])
+    for r0 in range(0, Xl.shape[0], INIT_BLOCK_ROWS):
+        Xb = Xl[r0:r0 + INIT_BLOCK_ROWS]
+        D = np.abs((Xb**2).sum(1)[:, None] + p2 - 2.0 * Xb @ P.T)
+        total += D.sum(axis=0)
+    return total / Xl.shape[0]
+
+
 def _complete(data: Dataset) -> bool:
     """All rows observed? The whole-dataset hint that phi.log_phi takes."""
     return bool(data.mask.all())
@@ -272,10 +294,7 @@ def init(
 
     # length-scale heuristic on imputed data (init.m:61-62)
     Xl = datautils.fill_linear_np(Xtr, mu_p, cov_p)
-    D = np.abs(
-        (Xl**2).sum(1)[:, None] + (P**2).sum(1)[None, :] - 2.0 * Xl @ P.T
-    )
-    gamma = np.sqrt(0.5 * m ** (1.0 / d) / D.mean(axis=0))  # (m,)
+    gamma = np.sqrt(0.5 * m ** (1.0 / d) / _mean_sq_dist(Xl, P))  # (m,)
 
     gshape = cfg.gamma_shape
     if method in ("GL", "GD"):

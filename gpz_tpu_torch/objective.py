@@ -111,8 +111,11 @@ def _gram_terms(params: GPzParams, cfg: ModelConfig, data: Dataset,
     results have the bits of the set alone."""
     sdt = solve_dtype(cfg)
     sets = batch_dims if alone else 0
-    PHI, _, ln_beta = design_matrix(params, cfg, data.X, data.mask, data.psi,
-                                    complete, alone)
+    PHI, ln_n, ln_beta = design_matrix(params, cfg, data.X, data.mask,
+                                       data.psi, complete, alone)
+    # not read here: not held through the Gram (an (n, m) tensor, 8 GB at
+    # n = 10**6, m = 1000 in float64)
+    del ln_n
     beta = torch.exp(-ln_beta)                           # (..., n, k)
     ob = data.omega[:, None] * beta                      # (..., n, k)
     alpha = torch.exp(params.ln_alpha.to(sdt))           # (..., m, k)
@@ -320,8 +323,9 @@ def holdout_metrics(
     sdt = solve_dtype(cfg)
     n_eff = _n_eff(n_eff, data, sdt)
     with torch.no_grad():
-        PHI, _, ln_beta = design_matrix(params, cfg, data.X, data.mask,
-                                        data.psi, complete, alone=True)
+        PHI, ln_n, ln_beta = design_matrix(params, cfg, data.X, data.mask,
+                                           data.psi, complete, alone=True)
+        del ln_n
         beta = torch.exp(-ln_beta)
         return _fit_metrics(PHI, w, ln_beta, beta, data, n_eff, cfg.k, sdt,
                             reducer, PHI.dim() - 2)

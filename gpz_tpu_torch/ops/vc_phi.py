@@ -53,6 +53,12 @@ PLAIN_BLOCK_ELEMS = 4096 * 100 * 25
 #: largest d the kernel is compiled for (linalg's unroll_max)
 D_MAX = 8
 
+#: most elements of the (n, m) output or cotangent of one call: the library
+#: takes n and m as C ints and carries every product of them in size_t, and a
+#: call past this raises instead of reaching the card (a lockstep of R sets
+#: at 10**6 rows and m = 1000 would be R * 10**9)
+MAX_PAIRS = 2**31 - 1
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "vc_phi.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -145,6 +151,9 @@ def _check(X, psi, P, Sigma, logdet_Sigma=None, g=None):
                              f"{X.dtype} on {X.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if n * m > MAX_PAIRS:
+        raise ValueError(f"{n} rows x {m} bases = {n * m} pairs, more than "
+                         f"the {MAX_PAIRS} one call takes")
     if X.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"dtype must be float32 or float64, got {X.dtype}")
     if not 1 <= d <= D_MAX:

@@ -28,9 +28,12 @@ def get_prior(
 ) -> torch.Tensor:
     """EM fixed point for mixture weights over the m bases, (m,)."""
     with torch.no_grad():
-        _, ln_n = log_phi(params, cfg, data.X, data.mask, data.psi, complete)
-        # log-sum-exp stabilized responsibilities
+        ln_n = log_phi(params, cfg, data.X, data.mask, data.psi,
+                       complete)[1]
+        # log-sum-exp stabilized responsibilities; only N stays held through
+        # the loop (each (n, m) tensor is 8 GB at n = 10**6, m = 1000)
         N = torch.exp(ln_n - ln_n.max(dim=1, keepdim=True).values)
+        del ln_n
         prior = torch.full((cfg.m,), 1.0 / cfg.m, dtype=data.X.dtype,
                            device=data.X.device)
         it, delta = 0, math.inf

@@ -1,9 +1,9 @@
 """Regenerate the golden files that hold gpz_tpu_torch against gpz_tpu where
 JAX is absent (chip_smoke.py on the GPU).
 
-    JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py [photoz] [train] [missing] [inference] [demos]
+    JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py [photoz] [train] [missing] [inference] [demos] [scale]
 
-With no argument all five files are written. `... make_torch_port_golden.py
+With no argument all six files are written. `... make_torch_port_golden.py
 divergence [small|full]` writes nothing: it prints where demo_photoz's
 training trajectories part (`photoz_divergence`).
 
@@ -95,6 +95,14 @@ port's mixture dtype. For each demo and size:
                             comparison follows the printed digits)
   <demo>.<size>.values      the same as float64
   <demo>.<size>.seconds     the process's wall clock
+
+tests/data/torch_port_golden_scale.npz holds the scale configuration
+(BASELINE.json configs[4]'s per-card problem, `scale_problem`: VC, m=1000,
+d=5, heteroscedastic, psi (n, d, d), float64) where the CPU can compute it:
+its 20,000-row sub-problem, from gpz_tpu on the CPU with its mixture scans
+in float64 (`jax_scale` lists the arrays; about nine minutes and 6 GB of
+host memory, most of it the four rows with NaNs, whose guarded batches
+escalate to the exact 1,000-component sum).
 
 (benchmarks/convergence_target.json keeps no trace of its run, so there is
 no time_to_target of it to keep; tests/test_torch_bench_convergence.py holds
@@ -802,6 +810,211 @@ def load_golden_demos() -> dict:
         return {k: z[k] for k in z.files}
 
 
+# --- the scale configuration: BASELINE.json configs[4]'s per-card problem ---
+
+GOLDEN_SCALE = os.path.join(HERE, "data", "torch_port_golden_scale.npz")
+SCALE_SEED = 3
+SCALE_TRAIN = 1_000_000
+SCALE_VALID = 100_000
+SCALE_SERVE = 20_000
+SCALE_MISSING = 1_000
+SCALE_M = 1000
+SCALE_SUB = 20_000
+SCALE_OBJECTIVE_ROWS = 8192
+SCALE_TRACE_ITERS = 3
+SCALE_COMPLETE_ROWS = 16
+#: the golden rows with NaNs: this many of each pattern of lost bands, the
+#: first of the missing request's rows with that pattern
+SCALE_NAN_PICKS = (((0,), 2), ((4,), 1), ((0, 4), 1))
+
+#: how far gpz_tpu_torch may be from the scale golden values, (rtol, atol),
+#: on the CPU and on the GPU alike; an absolute bound for the flat
+#: parameters. Measured on the CPU, the port against these values: the
+#: sub-problem's init equal bit for bit (host NumPy in both packages); at
+#: its init point (Sigma = gamma^-2 I, well conditioned) nlml 4.5e-14
+#: relative and the gradient 1.4e-13 of its largest entry 0.46 (err/bound
+#: 0.009 under TRAIN_TOL's init bounds); the f trace of its first
+#: iterations 2.1e-11 relative with equal evaluation counts (TRAIN_TOL's
+#: trace bound); the 16 complete rows mu 3.4e-12 relative, sigma 4.3e-13,
+#: nu 3.1e-15 and gamma 1.7e-14 absolute (err/bound 3.4e-4 at most under
+#: GOLDEN_TOL's float64 bounds, set for a trained point). The rows with NaNs
+#: sum the exact 1,000-component mixture (every guarded batch escalates at
+#: this point: top-64 coverage 0.17-0.22), which the port's plain path
+#: cannot evaluate on the CPU in reasonable time (10**9 pairs a row), so
+#: MISSING_TOL's float64 bounds, set for the same sums at m = 100, hold
+#: them on the card. The full-size init's length scales, blocked over rows,
+#: are held to gpz_tpu's unblocked expression within the flat bound (each
+#: block's matrix product rounds ~1e-16 relative).
+SCALE_TOL = {
+    "sub.init.flat": 1e-9,
+    "init.flat": 1e-9,
+    "init.nlml": TRAIN_TOL["init.nlml"], "init.grad": TRAIN_TOL["init.grad"],
+    "trace.f": TRAIN_TOL["trace.f"],
+    "complete": GOLDEN_TOL["float64"],
+    "missing": MISSING_TOL["float64"],
+}
+
+
+def scale_problem(synthetic_sdss):
+    """configs[4]'s per-card problem, drawn with the given package's copy of
+    synthetic_sdss: one draw of synthetic_sdss(1,120,000, filters=5, seed=3)
+    and psi = errs**2. Returns (X, Y, psi, training, validation, served,
+    missing): the first SCALE_TRAIN rows train, the next SCALE_VALID
+    validate; `served` indexes the last SCALE_SERVE rows (served complete);
+    `missing` is (positions among the served rows, X with NaNs) of the first
+    SCALE_MISSING served rows that lose a band when inject_missing (seed
+    MISSING_SEED) is applied to all of them."""
+    n = SCALE_TRAIN + SCALE_VALID + SCALE_SERVE
+    mags, errs, z = synthetic_sdss(n, filters=5, seed=SCALE_SEED)
+    tr = np.zeros(n, bool)
+    va = np.zeros(n, bool)
+    tr[:SCALE_TRAIN] = True
+    va[SCALE_TRAIN:SCALE_TRAIN + SCALE_VALID] = True
+    served = np.arange(n - SCALE_SERVE, n)
+    Xs = inject_missing(mags[served])
+    pos = np.where(np.isnan(Xs).any(axis=1))[0][:SCALE_MISSING]
+    return mags, z, errs ** 2, tr, va, served, (pos, Xs[pos])
+
+
+def scale_nan_picks(Xm):
+    """Positions among the rows with NaNs Xm of the golden ones
+    (SCALE_NAN_PICKS), in pattern order."""
+    nan = np.isnan(Xm)
+    picks = []
+    for bands, count in SCALE_NAN_PICKS:
+        want = np.zeros(Xm.shape[1], bool)
+        want[list(bands)] = True
+        picks.append(np.where((nan == want[None, :]).all(axis=1))[0][:count])
+    return np.concatenate(picks)
+
+
+def _jax_predict_unpadded(model, X, psi):
+    """gpz_tpu.predict's outputs for rows with NaNs, each pattern group one
+    batch with its coverage guard, as gpz_tpu.model.predict runs them but
+    without padding a group to 16 rows (its bucket): an escalated row costs
+    1,000 components x 10**6 pairs on the CPU. Returns ({output: (n, 1)},
+    [(rows of the group, coverage, escalated)])."""
+    import importlib
+
+    import jax.numpy as jnp
+    from gpz_tpu import datautils
+    from gpz_tpu.model import _predict_functions
+
+    # the module, not the package's `predict` function of the same name
+    jpredict = importlib.import_module("gpz_tpu.predict")
+
+    cfg = model.cfg
+    pset = model.best
+    Xn = (X - model.muX[None, :]) / model.sdX[None, :]
+    psi_c = datautils.fix_psi(psi, len(X), model.sdX, True)
+    mask = ~np.isnan(Xn)
+    Xz = np.where(mask, Xn, 0.0)
+    _, moments_fn = _predict_functions(cfg)
+    out = {k: np.zeros((len(X), cfg.k)) for k in ("mu", "nu", "beta_i",
+                                                   "gamma")}
+    groups = []
+    patterns, inverse = np.unique(mask, axis=0, return_inverse=True)
+    for pi in range(patterns.shape[0]):
+        rows = np.where(inverse == pi)[0]
+        margs = (pset.params, pset.post, pset.priors, jnp.asarray(Xz[rows]),
+                 jnp.asarray(patterns[pi].astype(np.float64)),
+                 jnp.asarray(psi_c[rows]))
+        *res, coverage = moments_fn(*margs, complete=False, mix_topl=None,
+                                    return_coverage=True)
+        escalated = float(coverage) < jpredict.MIX_COVERAGE_MIN
+        if escalated:
+            res = moments_fn(*margs, complete=False, mix_topl=cfg.m,
+                             return_coverage=False)
+        for key, val in zip(("mu", "nu", "beta_i", "gamma"), res):
+            out[key][rows] = np.asarray(val)
+        groups.append((rows, float(coverage), escalated))
+    out["gamma"] = np.maximum(out["gamma"], 0.0)
+    out["nu"] = np.maximum(out["nu"], 0.0)
+    out["sigma"] = out["nu"] + out["beta_i"] + out["gamma"]
+    out["mu"] = out["mu"] + model.muY[None, :]
+    return out, groups
+
+
+def jax_scale():
+    """{name: array} of the scale golden file, from gpz_tpu on the CPU in
+    float64 with its mixture scans in float64:
+
+      sub.init.flat           gpz_tpu.init (VC, m=SCALE_M, heteroscedastic,
+                              psi (n, d, d), seed 1) on the first SCALE_SUB
+                              training rows alone: the sub-problem
+      init.nlml, init.grad    nlog_ml and its flat gradient at that point on
+                              the first SCALE_OBJECTIVE_ROWS training rows
+      trace.f, trace.fevals   gpz_tpu.train(max_iter=SCALE_TRACE_ITERS) of
+                              the sub-problem (no validation rows)
+      complete.<output>       gpz_tpu.predict at the sub-problem's init point
+                              for the first SCALE_COMPLETE_ROWS served rows
+      missing.<output>        the same for the rows of scale_nan_picks among
+                              the missing request's rows, by pattern group
+                              with the coverage guard (no padding); and
+                              missing.coverage / missing.escalated per row
+
+    The full-size init (10**6 rows) is not here: gpz_tpu.init's distance
+    matrix would hold three (10**6, 1000) float64 temporaries (24 GB) on the
+    CPU. chip_smoke.py holds the port's full-size init to gpz_tpu's
+    expression evaluated unblocked on the GPU machine's host instead."""
+    os.environ["GPZ_MIX_DTYPE"] = "float64"
+    sys.path.insert(0, ROOT)
+    import jax
+    from jax.flatten_util import ravel_pytree
+    import gpz_tpu
+    from gpz_tpu import datautils
+    from gpz_tpu.data import synthetic_sdss
+    from gpz_tpu.model import _make_dataset
+    from gpz_tpu.objective import nlog_ml
+
+    X, Y, psi, tr, va, served, (pos, Xm) = scale_problem(synthetic_sdss)
+    sub = slice(0, SCALE_SUB)
+    model = gpz_tpu.init(X[sub], Y[sub], "VC", SCALE_M, heteroscedastic=True,
+                         psi=psi[sub], seed=SEED, dtype="float64")
+    out = {"sub.init.flat": np.asarray(ravel_pytree(model.last.params)[0])}
+
+    rows = np.zeros(SCALE_SUB, bool)
+    rows[:SCALE_OBJECTIVE_ROWS] = True
+    Xn = (X[sub] - model.muX[None, :]) / model.sdX[None, :]
+    Yc = Y[sub, None] - model.muY[None, :]
+    psi_c = datautils.fix_psi(psi[sub], SCALE_SUB, model.sdX, True)
+    data = _make_dataset(Xn, Yc, psi_c, np.ones(SCALE_SUB), rows, np.float64)
+    (f, _), g = jax.value_and_grad(
+        lambda p: nlog_ml(p, data, model.cfg, complete=True),
+        has_aux=True)(model.last.params)
+    out["init.nlml"] = np.asarray(f)
+    out["init.grad"] = np.asarray(ravel_pytree(g)[0])
+
+    c = served[:SCALE_COMPLETE_ROWS]
+    pred = gpz_tpu.predict(X[c], model, psi=psi[c])
+    for k in OUTPUTS:
+        out[f"complete.{k}"] = np.asarray(getattr(pred, k))
+    picks = scale_nan_picks(Xm)
+    got, groups = _jax_predict_unpadded(model, Xm[picks],
+                                        psi[served[pos[picks]]])
+    for k in OUTPUTS:
+        out[f"missing.{k}"] = got[k]
+    out["missing.picks"] = picks
+    out["missing.coverage"] = np.zeros(len(picks))
+    out["missing.escalated"] = np.zeros(len(picks), bool)
+    for grows, cov, esc in groups:
+        out["missing.coverage"][grows] = cov
+        out["missing.escalated"][grows] = esc
+
+    fit = gpz_tpu.train(model, X[sub], Y[sub], psi=psi[sub],
+                        max_iter=SCALE_TRACE_ITERS,
+                        max_attempts=MAX_ATTEMPTS, verbose=False).fit_info
+    keep = slice(0, fit["iterations"] + 1)
+    out["trace.f"] = np.asarray(fit["trace"]["f"])[keep]
+    out["trace.fevals"] = np.asarray(fit["trace"]["fevals"])[keep]
+    return out
+
+
+def load_golden_scale() -> dict:
+    with np.load(GOLDEN_SCALE) as z:
+        return {k: z[k] for k in z.files}
+
+
 def main(which):
     os.makedirs(os.path.dirname(GOLDEN), exist_ok=True)
     if "photoz" in which:
@@ -827,6 +1040,9 @@ def main(which):
     if "demos" in which:
         np.savez_compressed(GOLDEN_DEMOS, **jax_demos())
         print(f"wrote {GOLDEN_DEMOS} ({os.path.getsize(GOLDEN_DEMOS)} bytes)")
+    if "scale" in which:
+        np.savez_compressed(GOLDEN_SCALE, seed=SCALE_SEED, **jax_scale())
+        print(f"wrote {GOLDEN_SCALE} ({os.path.getsize(GOLDEN_SCALE)} bytes)")
 
 
 if __name__ == "__main__":
@@ -834,4 +1050,4 @@ if __name__ == "__main__":
         photoz_divergence(sys.argv[2] if len(sys.argv) > 2 else "small")
     else:
         main(sys.argv[1:] or ["photoz", "train", "missing", "inference",
-                              "demos"])
+                              "demos", "scale"])

@@ -257,6 +257,32 @@ def test_import_leaves_jax_out():
     assert gpz_tpu.__name__ == "gpz_tpu"  # the reference, imported here only
 
 
+def test_top_level_names_are_gpz_tpus_and_leave_jax_out():
+    """Every name of gpz_tpu's __all__ is in gpz_tpu_torch's, as the port's
+    own object (Dataset and the linalg, metrics and datautils modules among
+    them), and importing them imports no JAX."""
+    import gpz_tpu_torch
+
+    assert set(gpz_tpu.__all__) <= set(gpz_tpu_torch.__all__)
+    for name in gpz_tpu_torch.__all__:
+        obj = getattr(gpz_tpu_torch, name)
+        assert getattr(obj, "__module__", getattr(obj, "__name__", "")
+                       ).startswith("gpz_tpu_torch"), name
+    code = (
+        "import sys\n"
+        "from gpz_tpu_torch import Dataset, datautils, linalg, metrics\n"
+        "from gpz_tpu_torch import *\n"
+        "assert Dataset.__module__ == 'gpz_tpu_torch.dataset'\n"
+        "bad = sorted(m for m in sys.modules "
+        "if m.split('.')[0] in ('jax', 'jaxlib', 'gpz_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 def test_entry_points_default_to_the_gpu_and_never_to_the_cpu(tmp_path):
     """load_model, init, fit_ensemble and the CLI's train without a device
     go to the CUDA device, and sample_posterior runs where load_model put
