@@ -71,7 +71,7 @@ Phases, each printing its own lines; any failure exits non-zero:
                tests/data/torch_port_golden_missing.npz; the kernel against
                its plain version at every shape that one real request
                launches, mixture sums included (recorded from that request);
-               the mixture sums in float32 against float64 (MIX_DTYPE)
+               the mixture sums in float32 against float64 (GPZ_MIX_DTYPE)
 10. missing-objective  VC m=100 initialized on the 70,000 training rows after
                injection: flat parameters, nlog_ml and its gradient on the
                first 4,096 training rows (the masked pass) within MISSING_TOL
@@ -196,6 +196,28 @@ Phases, each printing its own lines; any failure exits non-zero:
                shape (a)-(d) launched: at (10**6 x 1000) plain runs once in
                row chunks, out of the timing loop. Then one evaluation at
                full size under the profiler
+21. bands    wide-band surveys: (a) the kernels' wide variant (d > 8,
+               d a runtime argument) against plain: forward and backward at
+               (70,000 x 100) for d = 9, 12, 16 and (4,000 x 100) for d =
+               32, random well-conditioned float64 inputs, within
+               KERNEL_TOL / KERNEL_BWD_TOL, two backward launches
+               bit-identical, CUDA-event times against the bound; small
+               shapes at d = 9..48 in float64 (against autograd too) and
+               float32, NaN at a non-PD A, a two-set backward bit-equal to
+               each set alone. (b) the nine-band configuration
+               (make_torch_port_golden.bands_problem: configs[2]'s widths at
+               d = 9, VC m=100, psi (n, 9, 9), float64): its 1,000-row
+               sub-problem against tests/data/torch_port_golden_bands.npz
+               within BANDS_TOL, then init on 70,000 rows, BANDS_ITERS
+               iterations with 10,000 validation rows, save_model /
+               load_model, and the loaded model serves 12,000 complete rows
+               and 3,000 rows with NaNs (inject_missing): seconds per
+               evaluation, the trace, rows/s, escalations, the launches by
+               shape held to what the path implies, the kernel pair against
+               plain at every shape launched. (c) phase 20's m=1000 model
+               serves 250 rows without band 0, one batch, by the default
+               guarded top-64 sum (it escalates) and under GPZ_MIX_TOPL=1000:
+               bit-equal, with seconds and launches of each
 
 With --profile, one warm gradient evaluation at the training shape is also
 traced with torch.profiler and its kernel table printed.
@@ -288,6 +310,18 @@ PAR_WARMUP, PAR_DRAWS, PAR_CHAINS = 60, 60, 2
 # phase 20: training iterations of the scale configuration (VC m=1000 on
 # 1,000,000 rows; make_torch_port_golden.scale_problem)
 SCALE_ITERS = 25
+
+# phase 21: training iterations of the nine-band configuration
+# (make_torch_port_golden.bands_problem); the wide kernel pair against plain
+# at (rows, d) x TRAIN_M bases, random well-conditioned inputs; rows of a
+# launch that compare_rows holds to plain (its first and last), above
+# SAMPLE_ABOVE pairs; rows of phase 20's batch with NaNs served with
+# MIX_TOPL >= m
+BANDS_ITERS = 25
+WIDE_SHAPES = ((70_000, 9), (70_000, 12), (70_000, 16), (4_000, 32))
+SAMPLE_ROWS = 128
+SAMPLE_ABOVE = 2 * 10**6
+TOPL_ROWS = 250
 
 # H100 SXM peaks for the bounds (NVIDIA's data sheet): device memory
 # 3.35 TB/s; FP64 34 TFLOP/s and FP32 67 TFLOP/s outside the tensor cores
@@ -531,16 +565,21 @@ def site_calls(fn):
     return result, sites
 
 
-def compare_sites(prefix, sites, per, key="launches_per_request"):
+def compare_sites(prefix, sites, per, key="launches_per_request",
+                  sample_above=None):
     """compare_kernel at every recorded shape of a path, with the shape's
-    launches (under `key`) and its bound; {name: record}."""
+    launches (under `key`) and its bound; {name: record}. A shape of more
+    than `sample_above` pairs goes to compare_rows instead."""
     recs = {}
     for (n, bases), (count, args) in sites.items():
         name = f"{prefix}-{n}x{bases}"
         slow = (dict(trials=3, calls=2, warmup=1)
                 if bases > 1000 or n * bases > 1e7 else None)
-        rec = compare_kernel(name, args, KERNEL_TOL["trained"],
-                             plain_timing=slow)
+        if sample_above is not None and n * bases > sample_above:
+            rec = compare_rows(name, args, KERNEL_TOL["trained"])
+        else:
+            rec = compare_kernel(name, args, KERNEL_TOL["trained"],
+                                 plain_timing=slow)
         b = bound("fwd", n, bases, args[0].shape[1], "float64")
         rec.update({"shape": [n, bases], key: count,
                     "bound_ms": b["bound_ms"]})
@@ -550,6 +589,46 @@ def compare_sites(prefix, sites, per, key="launches_per_request"):
               f"{rec['ms'] / b['bound_ms']:.2f}x its bound")
         recs[name] = rec
     return recs
+
+
+def compare_rows(name, args, tol):
+    """The forward kernel launched at a site's full shape and held to plain
+    on the first and last SAMPLE_ROWS rows of it (a row's lnPHI depends on
+    that row alone), where plain on every row takes seconds: the kernel
+    timed at the full shape, plain on those rows (plain_rows)."""
+    import torch
+    from gpz_tpu_torch.ops import vc_phi
+
+    X, psi, P, Sigma, lds = args[:5]
+    n = X.shape[0]
+    rows = SAMPLE_ROWS
+    idx = torch.as_tensor(sorted(set(range(min(rows, n)))
+                                 | set(range(max(0, n - rows), n))),
+                          device=X.device)
+    got = vc_phi.vc_lnphi_complete(*args)[idx]
+    sample = (X[idx].contiguous(), psi[idx].contiguous(), P, Sigma, lds)
+    want = vc_phi.vc_lnphi_plain(*sample)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want)
+    check(bool((torch.isfinite(got) == fin).all()),
+          f"{name}: non-finite entries differ from the plain version")
+    err = (got - want).abs()[fin]
+    rtol, atol = tol
+    max_abs = float(err.max())
+    worst = float((err / (atol + rtol * want.abs()[fin])).max())
+    few = dict(trials=3, calls=3, warmup=1)
+    rec = {"max_abs_err": max_abs,
+           "ms": median_ms(lambda: vc_phi.vc_lnphi_complete(*args), **few),
+           "plain_ms": median_ms(lambda: vc_phi.vc_lnphi_plain(*sample),
+                                 trials=1, calls=1, warmup=0),
+           "plain_rows": len(idx)}
+    print(f"kernel {name}: {shape_line(args)} max_abs_err={max_abs:.3e} "
+          f"(err/bound {worst:.3f}) on {len(idx)} of its {n} rows; kernel "
+          f"{rec['ms']:.4f} ms at the full shape, plain {rec['plain_ms']:.4f} "
+          f"ms on those rows")
+    check(worst <= 1.0, f"{name}: kernel disagrees with the plain version "
+          f"beyond rtol={rtol}, atol={atol}")
+    return rec
 
 
 def compare_bwd_sites(prefix, sites, per):
@@ -725,13 +804,15 @@ def sass_check(so: str):
             op = got.group(1)
             counts[name][op] = counts[name].get(op, 0) + 1
     kernels = {fn: c for fn, c in counts.items()
-               if "vc_lnphi_fwd_kernel" in fn or "vc_lnphi_bwd_kernel" in fn}
-    check(len(kernels) == 32, f"sass: {len(kernels)} kernel bodies, not 32")
+               if "vc_lnphi_fwd_kernel" in fn or "vc_lnphi_bwd_kernel" in fn
+               or "_wide_kernel" in fn}
+    check(len(kernels) == 36, f"sass: {len(kernels)} kernel bodies, not 36")
     for fn, c in kernels.items():
         check(c.get("CALL", 0) == 0, f"sass: {fn} holds a CALL")
-        if "IdLi5E" in fn:
-            what = "bwd" if "bwd_kernel" in fn else "fwd"
-            print(f"sass: {what} <double, 5>: {sum(c.values())} instructions, "
+        if "IdLi5E" in fn or "wide_kernelIdE" in fn:
+            what = "bwd" if "bwd" in fn else "fwd"
+            what += " wide <double>" if "_wide_" in fn else " <double, 5>"
+            print(f"sass: {what}: {sum(c.values())} instructions, "
                   + ", ".join(f"{k} {c.get(k, 0)}" for k in (
                       "DFMA", "DMUL", "DADD", "MUFU", "BRA", "CALL", "LDS",
                       "LDG", "LDGSTS", "BAR")))
@@ -775,6 +856,21 @@ def profile_evaluation(fun, flat):
           f"{total / traced_ms:.3f} of the traced wall")
     for key, count, ms in dev[:25]:
         print(f"profile: {ms:9.4f} ms  {count:4d} x  {key[:110]}")
+
+
+@contextlib.contextmanager
+def env_set(name: str, value: str):
+    """The environment variable `name` set to `value` while the block runs,
+    as it was after."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = old
 
 
 def reset_launches():
@@ -1428,7 +1524,7 @@ def host_peak(fn) -> tuple:
     return out, peak
 
 
-def compare_big(name, args, g, sets=1, rows=50_000) -> tuple:
+def compare_big(name, args, g, sets=1, rows=50_000, tol="trained") -> tuple:
     """The kernel pair against plain at a shape past 10**8 pairs, where the
     plain versions take seconds and their (n, m) outputs gigabytes: the
     forward's output held to plain a chunk of `rows` rows at a time, the
@@ -1442,7 +1538,7 @@ def compare_big(name, args, g, sets=1, rows=50_000) -> tuple:
 
     X, psi, P, Sigma, lds = args[:5]
     n, m, d = X.shape[0], P.shape[0], X.shape[1]
-    rtol, atol = KERNEL_TOL["trained"]
+    rtol, atol = KERNEL_TOL[tol]
     got = vc_phi.vc_lnphi_complete(*args[:5])
     plain_ms, max_abs, worst = 0.0, 0.0, 0.0
     for r0 in range(0, n, rows):
@@ -1489,7 +1585,7 @@ def compare_big(name, args, g, sets=1, rows=50_000) -> tuple:
           "their bits")
     check(torch.equal(got[1], got[1].transpose(1, 2)),
           f"{name}: dSigma's triangles differ")
-    rtol, atol = KERNEL_BWD_TOL["trained"]
+    rtol, atol = KERNEL_BWD_TOL[tol]
     bmax, bworst = 0.0, 0.0
     for part, a, w in zip(("dP", "dSigma"), got, plain):
         check(bool(torch.isfinite(a).all() and torch.isfinite(w).all()),
@@ -1529,7 +1625,8 @@ def phase_scale(device=None) -> tuple:
     escalations; the predict sites' launches held to expected_sites. (e)
     the kernel pair against plain at every shape (a)-(d) launched. Then one
     evaluation at full size under the profiler. Returns ((fwd, bwd)
-    launches of (a)-(d), forward sites, backward sites)."""
+    launches of (a)-(d), forward sites, backward sites, (the loaded model,
+    TOPL_ROWS served rows without band 0, their psi) for phase 21)."""
     import resource
 
     import torch
@@ -1904,8 +2001,13 @@ def phase_scale(device=None) -> tuple:
           f"held before it: data and models); with lnN held until the "
           f"Gram's forward ends {peak_kept / 2**30:.3f} GiB")
     profile_evaluation(evaluation, flat_b)
-    del data_tr, loaded
+    del data_tr
     reset_launches()
+    # phase 21 (c): TOPL_ROWS served rows without band 0, one batch
+    topl_rows = served[:TOPL_ROWS]
+    X_topl = X[topl_rows].copy()
+    X_topl[:, 0] = np.nan
+    topl_batch = (loaded, X_topl, psi[topl_rows])
 
     # (e) the kernel pair against plain at every shape (a)-(d) launched
     t0 = time.perf_counter()
@@ -1930,7 +2032,393 @@ def phase_scale(device=None) -> tuple:
     bwd.update(compare_bwd_sites("scale", bwd_sites, "phase-20 run"))
     print(f"scale: kernel pair vs plain at {len(fwd)} forward and {len(bwd)} "
           f"backward shapes in {time.perf_counter() - t0:.1f} s")
-    return got, fwd, bwd
+    return got, fwd, bwd, topl_batch
+
+
+def phase_wide(dev) -> dict:
+    """Phase 21 (a): the wide variant of the kernel pair (d > 8) against
+    plain on the card; returns {d: (forward record, backward record)} at
+    WIDE_SHAPES."""
+    import torch
+    from gpz_tpu_torch.ops import vc_phi
+
+    t0 = time.perf_counter()
+    f64 = torch.float64
+    rng = np.random.default_rng(21)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    wide = {}
+    for n, d in WIDE_SHAPES:
+        args = random_inputs(rng, n, d, TRAIN_M, f64, dev)
+        g = torch.randn((n, TRAIN_M), dtype=f64, device=dev, generator=gen)
+        reset_launches()
+        rec_f, rec_b = compare_big(f"wide-d{d}-{n}x{TRAIN_M}", args, g,
+                                   tol="float64")
+        check(all(c > 0 for c in launches()),
+              f"wide d={d}: the kernel pair did not launch")
+        for rec, kind in ((rec_f, "fwd"), (rec_b, "bwd")):
+            b = bound(kind, n, TRAIN_M, d, "float64")
+            rec.update(shape=[n, TRAIN_M, d], bound_ms=b["bound_ms"],
+                       bound_by=b["bound_by"])
+        wide[d] = (rec_f, rec_b)
+        del args, g
+    for d, dt_name in ((9, "float64"), (12, "float64"), (16, "float64"),
+                       (32, "float64"), (48, "float64"), (9, "float32"),
+                       (16, "float32"), (32, "float32")):
+        args = random_inputs(rng, 300, d, 37, getattr(torch, dt_name), dev)
+        name = f"wide-random-{dt_name}-d{d}-300x37"
+        compare_kernel(name, args, KERNEL_TOL[dt_name])
+        g = torch.randn((300, 37), dtype=args[0].dtype, device=dev,
+                        generator=gen)
+        compare_backward(name, args, g, KERNEL_BWD_TOL[dt_name])
+    X_, psi_, P_, Sigma_, lds_ = random_inputs(rng, 23, 12, 6, f64, dev)
+    Sigma_[[1, 4]] = -5.0 * torch.eye(12, dtype=f64, device=dev)
+    lds_[[1, 4]] = 0.0
+    non_pd = (X_, psi_, P_, Sigma_, lds_)
+    compare_kernel("wide-non-pd-float64-d12-23x6", non_pd,
+                   KERNEL_TOL["float64"])
+    nan = torch.isnan(vc_phi.vc_lnphi_complete(*non_pd))
+    check(bool(nan[:, [1, 4]].all()) and not bool(nan[:, [0, 2, 3, 5]].any()),
+          "wide non-pd: NaN is not exactly in the columns of the indefinite "
+          "bases")
+    X_, psi_, P_, Sigma_, _ = random_inputs(rng, 2000, 9, 2 * TRAIN_M,
+                                            f64, dev)
+    g = torch.randn((2000, 2 * TRAIN_M), dtype=f64, device=dev, generator=gen)
+    both = vc_phi.vc_lnphi_bwd(X_, psi_, P_, Sigma_, g, 2)
+    for s_, cols in enumerate((slice(0, TRAIN_M), slice(TRAIN_M, None))):
+        alone = vc_phi.vc_lnphi_bwd(X_, psi_, P_[cols].contiguous(),
+                                    Sigma_[cols].contiguous(),
+                                    g[:, cols].contiguous())
+        check(all(torch.equal(a[cols], b) for a, b in zip(both, alone)),
+              f"wide sets: set {s_} of a two-set backward differs from the "
+              "set alone")
+    print(f"bands-wide: the wide pair vs plain in "
+          f"{time.perf_counter() - t0:.1f} s; a two-set backward at "
+          f"(2000 x {2 * TRAIN_M}) d=9 bit-equal to each set alone")
+    for d, (rf, rb) in wide.items():
+        print(f"times wide d={d} ({rf['shape'][0]} x {TRAIN_M}) f64: fwd "
+              f"kernel {rf['ms']:.4f} ms, {rf['ms'] / rf['bound_ms']:.2f}x "
+              f"its bound {rf['bound_ms']:.4f} ms, plain {rf['plain_ms']:.1f}"
+              f" ms; bwd kernel {rb['ms']:.4f} ms, "
+              f"{rb['ms'] / rb['bound_ms']:.2f}x its bound "
+              f"{rb['bound_ms']:.4f} ms, plain {rb['plain_ms']:.1f} ms")
+    return wide
+
+
+def phase_bands(topl_batch, device=None) -> tuple:
+    """21. Wide-band surveys. (a) the wide kernel pair (d > 8) against plain
+    on the card: forward and backward at WIDE_SHAPES (70,000 x 100 for d =
+    9, 12, 16; 4,000 x 100 for d = 32) on random well-conditioned float64
+    inputs within KERNEL_TOL / KERNEL_BWD_TOL, two backward launches
+    bit-identical, times against the bound; 300 x 37 at d = 9, 12, 16, 32,
+    48 in float64 (also against autograd through plain) and at d = 9, 16,
+    32 in float32 (d = 48 forward and d = 32 backward in float64 work in
+    the global scratch, the others in shared memory); NaN exactly at a
+    non-PD A; a backward of two sets of bases bit-equal to each set alone.
+    (b) the nine-band configuration (make_torch_port_golden.bands_problem:
+    VC m=100, d=9, psi (n, 9, 9), float64) through the entry points: its
+    1,000-row sub-problem against tests/data/torch_port_golden_bands.npz
+    within BANDS_TOL (init, nlog_ml and its gradient, 16 complete rows, 4
+    rows with NaNs with the coverage guard's readings and escalations, the
+    first iterations); init on the 70,000 training rows, BANDS_ITERS
+    iterations with the 10,000 validation rows, save_model / load_model,
+    then the loaded model serves the 12,000 complete rows and the 3,000
+    rows with NaNs; every launch's shape and count held to what the path
+    implies (expected_sites for predict), and the kernel pair against plain
+    at every shape launched (rows sampled above SAMPLE_ABOVE pairs). (c)
+    phase 20's m=1000 model serves TOPL_ROWS rows without band 0, one
+    batch, once with the default top-64 sum (guarded; it escalates to the
+    exact sum) and once under GPZ_MIX_TOPL=1000 (the predict module
+    reloaded): bit-equal, with the seconds and launches of each. Returns
+    ((fwd, bwd) launches of (b), (fwd, bwd) launches of (c), wide forward
+    and backward records at 70,000 x 100, d = 9, forward sites, backward
+    sites)."""
+    import torch
+    import gpz_tpu_torch
+    from gpz_tpu_torch import datautils
+    from gpz_tpu_torch.data import synthetic_sdss
+    from gpz_tpu_torch.model import _make_dataset
+    from gpz_tpu_torch.optim import lbfgs
+    from make_torch_port_golden import (
+        BANDS, BANDS_COMPLETE_ROWS, BANDS_SUB, BANDS_TOL, BANDS_TRACE_ITERS,
+        M, OUTPUTS, bands_nan_picks, bands_problem, load_golden_bands,
+    )
+
+    predict_mod = importlib.import_module("gpz_tpu_torch.predict")
+    model_mod = importlib.import_module("gpz_tpu_torch.model")
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0) if device is None else torch.device(device)
+    f64 = torch.float64
+
+    wide = phase_wide(dev)
+
+    # (b) the nine-band configuration through the entry points
+    t_b = time.perf_counter()
+    gold = load_golden_bands()
+    X, Y, psi, tr, va, served, (m_idx, Xm) = bands_problem(synthetic_sdss)
+    psi_m = psi[m_idx]
+    n_tr, n_va = int(tr.sum()), int(va.sum())
+    fwd_sites, bwd_sites, pred_sites = {}, {}, {}
+    pred_calls = []
+
+    def serve(X_, model_, psi__):
+        (pred, sec), calls = moments_calls(
+            lambda: timed_predict(X_, model_, psi__))
+        pred_calls.extend(calls)
+        return pred, sec, calls
+
+    torch.cuda.synchronize()
+    reset_launches()
+    with pair_recorded(fwd_sites, bwd_sites, host_above=10**8), recording(
+            "gpz_tpu_torch.predict", "vc_lnphi_complete", pred_sites):
+        sub = slice(0, BANDS_SUB)
+        sub_model = gpz_tpu_torch.init(X[sub], Y[sub], "VC", M,
+                                       heteroscedastic=True, psi=psi[sub],
+                                       seed=1, dtype="float64", device=device)
+        flat_s, unravel_s = sub_model.last.params.flatten()
+        err0 = float(np.max(np.abs(flat_s.cpu().numpy()
+                                   - gold["sub.init.flat"])))
+        print(f"bands-sub: init on {BANDS_SUB} rows of {BANDS} bands, flat "
+              f"parameters vs JAX's max_abs {err0:.3e}")
+        check(err0 <= BANDS_TOL["sub.init.flat"], "bands-sub: init differs "
+              f"from the JAX package's beyond {BANDS_TOL['sub.init.flat']}")
+        Xn = (X[sub] - sub_model.muX[None, :]) / sub_model.sdX[None, :]
+        Yc = Y[sub, None] - sub_model.muY[None, :]
+        psi_c = datautils.fix_psi(psi[sub], BANDS_SUB, sub_model.sdX, True)
+        data_o = _make_dataset(Xn, Yc, psi_c, np.ones(BANDS_SUB),
+                               np.ones(BANDS_SUB, bool), f64, dev)
+        nlml, grad = objective_at(flat_s, unravel_s, data_o, sub_model.cfg)
+        del data_o
+        within(f"bands-sub: nlml {nlml:.12f} (JAX "
+               f"{float(gold['init.nlml']):.12f})", nlml, gold["init.nlml"],
+               BANDS_TOL["init.nlml"])
+        within("bands-sub: gradient", grad, gold["init.grad"],
+               BANDS_TOL["init.grad"])
+        c_rows = served[:BANDS_COMPLETE_ROWS]
+        pc, _, _ = serve(X[c_rows], sub_model, psi[c_rows])
+        for k_ in OUTPUTS:
+            within(f"bands-sub: {len(c_rows)} complete rows {k_}",
+                   getattr(pc, k_), gold[f"complete.{k_}"],
+                   BANDS_TOL["complete"][k_])
+        picks = bands_nan_picks(Xm)
+        check(np.array_equal(picks, gold["missing.picks"]),
+              "bands-sub: golden rows with NaNs differ from this draw")
+        pm, _, calls = serve(Xm[picks], sub_model, psi_m[picks])
+        for k_ in OUTPUTS:
+            within(f"bands-sub: {len(picks)} rows with NaNs {k_}",
+                   getattr(pm, k_), gold[f"missing.{k_}"],
+                   BANDS_TOL["missing"][k_])
+        _, group = np.unique(~np.isnan(Xm[picks]), axis=0,
+                             return_inverse=True)
+        first = [int(np.where(group.ravel() == g_)[0][0])
+                 for g_ in range(group.max() + 1)]
+        cov_jax = gold["missing.coverage"][first]
+        esc_jax = gold["missing.escalated"][first]
+        cov_got = np.array([c[3] for c in calls if c[3] is not None])
+        esc_got = np.array([c[2] == M for c in calls if c[3] is None])
+        print(f"bands-sub: coverage of the top {predict_mod.MIX_TOPL} per "
+              f"group {np.round(cov_got, 9).tolist()} (JAX "
+              f"{np.round(cov_jax, 9).tolist()}), escalated "
+              f"{int(esc_got.sum())} of {len(cov_got)} (JAX "
+              f"{int(esc_jax.sum())})")
+        check(cov_got.shape == cov_jax.shape
+              and float(np.max(np.abs(cov_got - cov_jax))) <= 1e-9
+              and int(esc_got.sum()) == int(esc_jax.sum()),
+              "bands-sub: the coverage guard's readings or escalations "
+              "differ from JAX's")
+        sub_fit = gpz_tpu_torch.train(
+            sub_model, X[sub], Y[sub], psi=psi[sub],
+            max_iter=BANDS_TRACE_ITERS, max_attempts=MAX_ATTEMPTS,
+            verbose=False).fit_info
+        k = len(gold["trace.f"])
+        check(sub_fit["iterations"] + 1 == k, "bands-sub: "
+              f"{sub_fit['iterations']} iterations, JAX {k - 1}")
+        within(f"bands-sub: f at iterations 0..{k - 1} "
+               f"{np.round(sub_fit['trace']['f'][:k], 10).tolist()}",
+               sub_fit["trace"]["f"][:k], gold["trace.f"],
+               BANDS_TOL["trace.f"])
+        check(np.array_equal(sub_fit["trace"]["fevals"][:k],
+                             gold["trace.fevals"]),
+              "bands-sub: evaluation counts differ from JAX's")
+        sub_evals = sub_fit["fun_evals"]
+        del sub_model
+        print(f"bands-sub: held to the golden file in "
+              f"{time.perf_counter() - t_b:.1f} s")
+
+        # init and training at full size, every evaluation timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = gpz_tpu_torch.init(X, Y, "VC", M, heteroscedastic=True,
+                                   training=tr, psi=psi, seed=1,
+                                   dtype="float64", device=device)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        check(model.last.params.P.device == dev,
+              "bands: init did not build the model on the card")
+        eval_s = []
+        real_objective = model_mod._objective
+
+        def timed_objective(*a):
+            fun = real_objective(*a)
+
+            def timed(flat):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                out = fun(flat)
+                torch.cuda.synchronize()
+                eval_s.append(time.perf_counter() - t1)
+                return out
+            return timed
+
+        model_mod._objective = timed_objective
+        try:
+            t0 = time.perf_counter()
+            fitted = gpz_tpu_torch.train(
+                model, X, Y, training=tr, validation=va, psi=psi,
+                max_iter=BANDS_ITERS, max_attempts=MAX_ATTEMPTS,
+                verbose=False)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+        finally:
+            model_mod._objective = real_objective
+        fit = fitted.fit_info
+        trace = fit["trace"]
+        n_it, evals = fit["iterations"], fit["fun_evals"]
+        check(all(np.isfinite(a).all() for a in (
+            trace["f"], trace["opt_cond"], trace["step"], trace["score"],
+            *trace["extras"].values())), "bands-train: non-finite trace")
+        check(bool(np.all(np.diff(trace["f"]) <= 0)),
+              "bands-train: f increased over an accepted iteration")
+        check(n_it == BANDS_ITERS or fit["status"] in (
+            lbfgs.STATUS_OPTIMAL, lbfgs.STATUS_STEP_TOO_SMALL,
+            lbfgs.STATUS_EARLY_STOP),
+              f"bands-train: {n_it} iterations, status {fit['status']}")
+        check(len(eval_s) == evals, "bands-train: timed evaluations differ "
+              "from the run's")
+        med = float(np.median(eval_s[1:] if len(eval_s) > 1 else eval_s))
+        print(f"bands-train: f at iterations 0..{n_it} "
+              f"{np.round(trace['f'], 8).tolist()}; valid RMSE "
+              f"{trace['extras']['valid_rmse'][-1]:.6f}")
+        print(f"bands-train: VC m={M}, d={BANDS}, init on {n_tr} rows in "
+              f"{init_s:.3f} s; {n_it} iterations, {evals} evaluations, "
+              f"status {fit['status']} in {train_s:.3f} s "
+              f"({train_s / evals:.4f} s per evaluation with scoring and "
+              f"resolving; evaluations alone median {med:.4f} s, first "
+              f"{eval_s[0]:.4f} s); final nlml {fit['final_nlml']:.10f}")
+
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "bands.npz")
+            gpz_tpu_torch.save_model(fitted, path)
+            loaded = gpz_tpu_torch.load_model(path, device=device)
+        check(torch.equal(loaded.best.params.flatten()[0],
+                          fitted.best.params.flatten()[0])
+              and torch.equal(loaded.best.post.iSigma_w,
+                              fitted.best.post.iSigma_w),
+              "bands-checkpoint: the loaded model differs from the saved")
+        del model, fitted
+        pc, sec_c, calls_c = serve(X[served], loaded, psi[served])
+        pm, sec_m, calls_m = serve(Xm, loaded, psi_m)
+        for label, pred, n_ in (("complete", pc, len(served)),
+                                ("with NaNs", pm, len(Xm))):
+            check(all(np.isfinite(getattr(pred, k_)).all()
+                      for k_ in OUTPUTS + ("phi",))
+                  and pred.mu.shape == (n_, 1) and pred.sigma.min() > 0
+                  and pred.nu.min() >= 0 and pred.gamma.min() >= 0,
+                  f"bands-serve: rows {label}: non-finite or negative")
+        cov = [c[3] for c in calls_m if c[3] is not None]
+        n_esc = sum(1 for c in calls_m if c[2] == M)
+        check(n_esc == sum(1 for c_ in cov
+                           if c_ < predict_mod.MIX_COVERAGE_MIN),
+              "bands-serve: escalations differ from the guarded batches "
+              "below MIX_COVERAGE_MIN")
+        n_nan = int(np.isnan(Xm).any(axis=1).sum())
+        print(f"bands-serve: {len(served)} complete rows in {sec_c:.3f} s "
+              f"({len(served) / sec_c:.1f} rows/s, {len(calls_c)} batches); "
+              f"{len(Xm)} rows ({n_nan} with NaNs) in {sec_m:.3f} s "
+              f"({len(Xm) / sec_m:.1f} rows/s, {len(calls_m)} moment calls);"
+              f" top-{predict_mod.MIX_TOPL} coverage over {len(cov)} guarded "
+              f"batches: least {min(cov):.9f}; {n_esc} escalated to the "
+              f"exact {M}-component sum")
+        want_pred = expected_sites(loaded.cfg, pred_calls)
+        check(site_counts(pred_sites) == want_pred, "bands-serve: predict "
+              f"launched {site_counts(pred_sites)}, the budgets imply "
+              f"{want_pred}")
+        big, val, sub_shape = (n_tr, M), (n_va, M), (BANDS_SUB, M)
+        want_f = {big: 1 + evals + 4, val: n_it + 1,
+                  sub_shape: 1 + 1 + sub_evals + 4}
+        want_b = {big: evals, sub_shape: 1 + sub_evals}
+        check(site_counts(fwd_sites) == want_f
+              and site_counts(bwd_sites) == want_b,
+              f"bands: objective sites {site_counts(fwd_sites)}, "
+              f"{site_counts(bwd_sites)}; the path implies {want_f}, "
+              f"{want_b}")
+    torch.cuda.synchronize()
+    got = launches()
+    want = (sum(want_f.values()) + sum(want_pred.values()),
+            sum(want_b.values()))
+    check(got == want and all(c > 0 for c in got),
+          f"bands: launches {got}, the path implies {want}")
+    print(f"bands: main path in {time.perf_counter() - t_b:.1f} s; "
+          f"LAUNCHES_FWD / LAUNCHES_BWD {got} (the wide variant at d="
+          f"{BANDS}) as the path implies: objective {want_f}, {want_b}; "
+          f"predict {want_pred}")
+    del pc, pm, loaded
+    reset_launches()
+
+    # the kernel pair against plain at every shape (b) launched
+    t0 = time.perf_counter()
+    fwd, bwd = {}, {}
+    big_f, big_b = fwd_sites.pop(big), bwd_sites.pop(big)
+    args_b = moved(big_b[1], dev)
+    rec_f, rec_b = compare_big(f"bands-{n_tr}x{M}", moved(big_f[1], dev),
+                               args_b[4], *args_b[5:])
+    del args_b
+    for rec, kind, count in ((rec_f, "fwd", big_f[0]),
+                             (rec_b, "bwd", big_b[0])):
+        rec.update(shape=list(big), launches=count,
+                   bound_ms=bound(kind, n_tr, M, BANDS, "float64")["bound_ms"])
+    fwd[f"bands-{n_tr}x{M}"] = rec_f
+    bwd[f"bands-bwd-{n_tr}x{M}"] = rec_b
+    fwd.update(compare_sites("bands", fwd_sites, "phase-21 run",
+                             key="launches"))
+    fwd.update(compare_sites("bands-predict", pred_sites, "phase-21 run",
+                             key="launches", sample_above=SAMPLE_ABOVE))
+    bwd.update(compare_bwd_sites("bands", bwd_sites, "phase-21 run"))
+    print(f"bands: kernel pair vs plain at {len(fwd)} forward and {len(bwd)} "
+          f"backward shapes in {time.perf_counter() - t0:.1f} s")
+
+    # (c) phase 20's m=1000 model, one batch with NaNs, MIX_TOPL >= m
+    model_k, X_k, psi_k = topl_batch
+    m_k = model_k.cfg.m
+    reset_launches()
+    (esc, esc_s), esc_calls = moments_calls(
+        lambda: timed_predict(X_k, model_k, psi_k))
+    esc_launches = launches()
+    check(len(esc_calls) == 2 and esc_calls[1][2] == m_k,
+          f"topl: the batch did not escalate ({esc_calls})")
+    try:
+        with env_set("GPZ_MIX_TOPL", str(m_k)):
+            importlib.reload(predict_mod)
+            reset_launches()
+            (exact, exact_s), exact_calls = moments_calls(
+                lambda: timed_predict(X_k, model_k, psi_k))
+            exact_launches = launches()
+    finally:
+        importlib.reload(predict_mod)
+    check(len(exact_calls) == 1 and exact_calls[0][3] is None
+          and exact_calls[0][2] == m_k,
+          f"topl: MIX_TOPL={m_k} did not serve the exact sum unguarded "
+          f"({exact_calls})")
+    check(all(np.array_equal(getattr(exact, k_), getattr(esc, k_))
+              for k_ in OUTPUTS + ("phi",)),
+          f"topl: MIX_TOPL={m_k} differs from the escalated result")
+    print(f"topl: {len(X_k)} rows without band 0 at m={m_k}: default top-"
+          f"{predict_mod.MIX_TOPL} (coverage {esc_calls[0][3]:.9f}, "
+          f"escalated) {esc_s:.3f} s, launches fwd/bwd {esc_launches}; "
+          f"GPZ_MIX_TOPL={m_k} {exact_s:.3f} s, launches {exact_launches}; "
+          "outputs bit-equal")
+    print(f"bands: phase 21 in {time.perf_counter() - t_phase:.1f} s")
+    return got, exact_launches, wide[BANDS], fwd, bwd
 
 
 def host_ms(fn) -> float:
@@ -2869,10 +3357,15 @@ def main(argv) -> int:
         # ptxas names a function, then reports its registers and spills
         for i, line in enumerate(lines):
             if "Compiling entry function" in line and (
-                    "IdLi5E" in line or "IdLi8E" in line):
+                    "IdLi5E" in line or "IdLi8E" in line
+                    or "wide_kernelI" in line):
                 report = " ".join(s.strip() for s in lines[i + 1:i + 4]
                                   if "registers" in s or "spill" in s)
-                what = "bwd" if "bwd_kernel" in line else "fwd"
+                what = "bwd" if "bwd_" in line else "fwd"
+                if "wide_kernelI" in line:
+                    kind = "double" if "wide_kernelId" in line else "float"
+                    print(f"build: {what} wide <{kind}>: {report}")
+                    continue
                 dd = 5 if "IdLi5E" in line else 8
                 print(f"build: {what} <double, {dd}>: {report}")
     sass_check(so)
@@ -3284,11 +3777,8 @@ def main(argv) -> int:
     # the mixture sums in float32 against float64, at the trained point
     mix = {}
     for dt_name in ("float64", "float32", "float64", "float32"):
-        predict_mod.MIX_DTYPE = getattr(torch, dt_name)
-        try:
+        with env_set("GPZ_MIX_DTYPE", dt_name):
             pred, sec = timed_predict(Xs[rq], model32, psis[rq])
-        finally:
-            predict_mod.MIX_DTYPE = f64
         mix.setdefault(dt_name, []).append((pred, sec))
     p64, p32 = mix["float64"][-1][0], mix["float32"][-1][0]
     nan32 = sum(int((~np.isfinite(getattr(p32, k_))).sum())
@@ -3443,7 +3933,10 @@ def main(argv) -> int:
         model, X, Y, psi, tr, va, data_tr, trace["f"],
         train_s / evals * 1e3)
     new_paths["demos"], demo_fwd, demo_bwd = phase_demos()
-    new_paths["scale"], scale_fwd, scale_bwd = phase_scale()
+    new_paths["scale"], scale_fwd, scale_bwd, topl_batch = phase_scale()
+    bands_launches, new_paths["mix_topl"], wide_rec, bands_fwd, bands_bwd = (
+        phase_bands(topl_batch))
+    del topl_batch
     new_paths["convergence"] = conv_launches
     new_fwd = sum(f for f, _ in new_paths.values())
     new_bwd = sum(b for _, b in new_paths.values())
@@ -3485,6 +3978,26 @@ def main(argv) -> int:
            if k_ in ("bound_ms", "bound_by")},
         "library_ms": None,
     }]
+    # the wide variant (d > 8) of each kernel: launched on the nine-band
+    # path only; its times at (70,000 x 100), d = 9, from phase 21 (a)
+    for kind, rec, launched, sites in (
+            ("fwd", wide_rec[0], bands_launches[0], bands_fwd),
+            ("bwd", wide_rec[1], bands_launches[1], bands_bwd)):
+        kernels.append({
+            "name": f"vc_lnphi_{kind}_wide", "route": "cuda",
+            "source": source,
+            "replaces": ("gpz_tpu/ops/vc_phi.py:126" if kind == "fwd"
+                         else "gpz_tpu/ops/vc_phi.py:138"),
+            "launches": launched,
+            "launches_by_path": {"bands": launched},
+            "max_abs_err": max([rec["max_abs_err"]] + [
+                c["max_abs_err"] for c in sites.values()]),
+            "sites": sites,
+            "shape": [*rec["shape"], "float64"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": None,
+        })
     for k_ in kernels:
         k_["ms_over_bound"] = k_["ms"] / k_["bound_ms"]
         print(f"ratio {k_['name']}: {k_['ms']:.4f} ms / bound "

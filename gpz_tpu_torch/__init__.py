@@ -15,9 +15,12 @@ and `predict` gives mu and sigma = nu + beta_i + gamma. `init` and `load_model`
 place the model on the CUDA device unless given another; `train` and `predict`
 run where the model is. On CUDA tensors the full-covariance design-matrix
 function on complete rows and its gradient run as the kernels in
-csrc/vc_phi.cu (built with nvcc at first use), in training and at every site
-of prediction, the mixture sums of missing-data prediction included; on CPU
-tensors they run as the same functions in plain PyTorch.
+csrc/vc_phi.cu (built with nvcc at first use) at any number of bands d, in
+training and at every site of prediction, the mixture sums of missing-data
+prediction included; on CPU tensors they run as the same functions in plain
+PyTorch. gpz_tpu's environment knobs (GPZ_PAIR_BUDGET,
+GPZ_PAIR_BUDGET_MISSING, GPZ_MIX_TOPL, GPZ_MIX_COVERAGE_MIN,
+GPZ_VARIANCE_DTYPE, GPZ_MIX_DTYPE, GPZ_PROFILE) are read under their names.
 
 Also ported: multi-restart ensembles (`fit_ensemble`: the R restarts train
 as the lanes of one lockstep L-BFGS, `optim.minimize_batched`, each round one
@@ -48,6 +51,9 @@ from gpz_tpu_torch.checkpoint import (
 )
 from gpz_tpu_torch.ensemble import fit_ensemble
 from gpz_tpu_torch import datautils, linalg, metrics
+
+#: the version of gpz_tpu this package ports
+__version__ = "0.1.0"
 
 __all__ = [
     "ModelConfig",

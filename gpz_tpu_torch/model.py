@@ -13,8 +13,10 @@ told otherwise; `train` and `predict` run where the model's parameters are.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import os
 import time
 from typing import Optional
 
@@ -395,23 +397,24 @@ def train(
                 "train_ll": aux.train_ll,
             }
 
-    res = minimize(
-        fun,
-        flat0,
-        history=tc.history,
-        max_iter=tc.max_iter,
-        opt_tol=tc.opt_tol,
-        prog_tol=tc.prog_tol,
-        c1=tc.c1,
-        c2=tc.c2,
-        max_ls=tc.max_ls,
-        score_fn=score_fn,
-        max_attempts=tc.max_attempts,
-        init_best_score=(model.best.score
-                         if math.isfinite(model.best.score) else None),
-        x_best0=x_best0,
-        iter_callback=_LiveRowPrinter(has_valid) if tc.verbose else None,
-    )
+    with _profiled(device):
+        res = minimize(
+            fun,
+            flat0,
+            history=tc.history,
+            max_iter=tc.max_iter,
+            opt_tol=tc.opt_tol,
+            prog_tol=tc.prog_tol,
+            c1=tc.c1,
+            c2=tc.c2,
+            max_ls=tc.max_ls,
+            score_fn=score_fn,
+            max_attempts=tc.max_attempts,
+            init_best_score=(model.best.score
+                             if math.isfinite(model.best.score) else None),
+            x_best0=x_best0,
+            iter_callback=_LiveRowPrinter(has_valid) if tc.verbose else None,
+        )
 
     state = (unravel, data_tr, cfg64, complete_tr, cfg.dtype)
     last = _resolve(res.x, res.best_score if not has_valid else -math.inf,
@@ -433,6 +436,25 @@ def train(
         cfg=cfg, muX=model.muX, sdX=model.sdX, muY=model.muY,
         last=last, best=best, fit_info=fit_info,
     )
+
+
+def _profiled(device: torch.device):
+    """With GPZ_PROFILE set to a directory, a torch.profiler trace of the
+    block (host and, on a CUDA device, the card's kernels) written there on
+    exit, as gpz_tpu writes a jax.profiler trace of its training; with it
+    unset, nothing."""
+    out = os.environ.get("GPZ_PROFILE")
+    if not out:
+        return contextlib.nullcontext()
+    from torch.profiler import (
+        ProfilerActivity, profile, tensorboard_trace_handler,
+    )
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities,
+                   on_trace_ready=tensorboard_trace_handler(out))
 
 
 def sample_weights(
@@ -478,10 +500,10 @@ def _moments_batch(cfg: ModelConfig, batch_size: int = 2048) -> int:
     within it: the diagonal family's pair block at a block size of 8, the
     full family's mixture tensors (X_hat, Psi_hat) of the missing-data path.
     Budgets are calibrated in f32 elements and the chain runs in
-    predict.VARIANCE_DTYPE, so the batch scales down with its width.
+    predict.variance_dtype(), so the batch scales down with its width.
     """
     d_cost = cfg.d * cfg.d if cfg.full_cov else cfg.d
-    vbytes = torch.finfo(predict_mod.VARIANCE_DTYPE).bits // 8
+    vbytes = torch.finfo(predict_mod.variance_dtype()).bits // 8
     return max(
         16, min(batch_size,
                 predict_mod.PAIR_BUDGET * 4 // vbytes // (8 * cfg.m * d_cost))

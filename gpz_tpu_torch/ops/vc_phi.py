@@ -15,9 +15,12 @@ The kernels (csrc/vc_phi.cu) replace gpz_tpu/ops/vc_phi.py::_fwd_kernel and
 reciprocal form (one rsqrt per column, no division, no square root, one
 logarithm per pair), every thread of a block at work whatever m is, and a
 grid of one whole wave of equal blocks; the source note says what bounds
-them. They are built with nvcc at first use into gpz_tpu_torch/_build/,
-keyed by a hash of the source and the flags (no fast-math flag among them),
-and loaded with ctypes.
+them. d <= 8 runs templates that hold a pair in registers; any wider d runs
+a wide variant with d a runtime argument, whose pairs work in shared memory
+(or, past what it holds, in a global scratch that `_workspace` allocates).
+They are built with nvcc at first use into gpz_tpu_torch/_build/, keyed by
+a hash of the source and the flags (no fast-math flag among them), and
+loaded with ctypes.
 
 `vc_lnphi_complete` is differentiable in P, Sigma and logdet_Sigma through
 the autograd.Function `VcLnPhi`; X and psi are data, and asking for their
@@ -49,9 +52,6 @@ LAUNCHES_BWD = 0
 #: of prediction passes thousands of pairs as bases)
 PHI_BLOCK_ROWS = 4096
 PLAIN_BLOCK_ELEMS = 4096 * 100 * 25
-
-#: largest d the kernel is compiled for (linalg's unroll_max)
-D_MAX = 8
 
 #: most elements of the (n, m) output or cotangent of one call: the library
 #: takes n and m as C ints and carries every product of them in size_t, and a
@@ -113,15 +113,17 @@ def library() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(build())
         lib.gpz_vc_lnphi_fwd.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
         )
         lib.gpz_vc_lnphi_fwd.restype = ctypes.c_int
         lib.gpz_vc_lnphi_bwd.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
         )
         lib.gpz_vc_lnphi_bwd.restype = ctypes.c_int
         lib.gpz_vc_lnphi_bwd_spans.argtypes = [ctypes.c_int] * 5
         lib.gpz_vc_lnphi_bwd_spans.restype = ctypes.c_int
+        lib.gpz_vc_lnphi_workspace.argtypes = [ctypes.c_int] * 6
+        lib.gpz_vc_lnphi_workspace.restype = ctypes.c_longlong
         lib.gpz_cuda_error_string.argtypes = [ctypes.c_int]
         lib.gpz_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -156,11 +158,25 @@ def _check(X, psi, P, Sigma, logdet_Sigma=None, g=None):
                          f"the {MAX_PAIRS} one call takes")
     if X.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"dtype must be float32 or float64, got {X.dtype}")
-    if not 1 <= d <= D_MAX:
-        raise ValueError(f"d must be in 1..{D_MAX}, got {d}")
+    if d < 1:
+        raise ValueError(f"d must be at least 1, got {d}")
     if X.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {X.device}")
     return n, m, d
+
+
+def _workspace(lib, X, n, m, sets, d, backward):
+    """The wide variant's global scratch for a call (None where its
+    workspaces lie in shared memory, and for d <= 8)."""
+    is_double = int(X.dtype == torch.float64)
+    elems = lib.gpz_vc_lnphi_workspace(n, m, sets, d, is_double,
+                                       int(backward))
+    if elems < 0:
+        raise RuntimeError("vc_lnphi: no launch plan for "
+                           f"n={n}, m={m}, d={d} on {X.device}")
+    if not elems:
+        return None
+    return torch.empty(elems, dtype=X.dtype, device=X.device)
 
 
 def _raise_on(err: int, what: str):
@@ -180,10 +196,12 @@ def _forward(X, psi, P, Sigma, logdet_Sigma):
         return out
     lib = library()
     with torch.cuda.device(X.device):
+        ws = _workspace(lib, X, n, m, 1, d, backward=False)
         err = lib.gpz_vc_lnphi_fwd(
             X.data_ptr(), psi.data_ptr(), P.data_ptr(), Sigma.data_ptr(),
             logdet_Sigma.data_ptr(), out.data_ptr(), n, m, d,
             int(X.dtype == torch.float64),
+            None if ws is None else ws.data_ptr(),
             torch.cuda.current_stream(X.device).cuda_stream,
         )
     _raise_on(err, "vc_lnphi forward")
@@ -223,10 +241,12 @@ def vc_lnphi_bwd(X, psi, P, Sigma, g, sets=1):
                                f"n={n}, m={m}, d={d} on {X.device}")
         partial = torch.empty((spans, d + d * d, m), dtype=X.dtype,
                               device=X.device)
+        ws = _workspace(lib, X, n, m, sets, d, backward=True)
         err = lib.gpz_vc_lnphi_bwd(
             X.data_ptr(), psi.data_ptr(), P.data_ptr(), Sigma.data_ptr(),
             g.data_ptr(), partial.data_ptr(), dP.data_ptr(),
             dSigma.data_ptr(), n, m, sets, d, is_double,
+            None if ws is None else ws.data_ptr(),
             torch.cuda.current_stream(X.device).cuda_stream,
         )
     _raise_on(err, "vc_lnphi backward")
@@ -262,7 +282,8 @@ def vc_lnphi_complete(X, psi, P, Sigma, logdet_Sigma, sets=1):
     """lnPHI (n, m) for complete data with full-covariance input noise.
 
     X (n, d); psi (n, d, d); P (m, d); Sigma (m, d, d); logdet_Sigma (m,):
-    contiguous, one dtype (float32 or float64), one device, 1 <= d <= 8.
+    contiguous, one dtype (float32 or float64), one device, d >= 1 (d <= 8
+    runs the kernels' register-held templates, wider d their wide variant).
     Only the lower triangles of psi and Sigma are read. Differentiable in P,
     Sigma and logdet_Sigma; X and psi are data. `sets`: the bases are that
     many equal runs, one per parameter set of a batched evaluation, and the

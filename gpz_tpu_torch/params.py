@@ -96,3 +96,10 @@ class GPzParams:
 
     def _items(self):
         return ((f, getattr(self, f)) for f in FIELDS)
+
+
+def zeros_like_params(params: GPzParams) -> GPzParams:
+    """Parameters of the same shapes, dtypes and device, all zero (absent
+    fields stay absent)."""
+    return GPzParams(**{f: None if t is None else torch.zeros_like(t)
+                        for f, t in params._items()})

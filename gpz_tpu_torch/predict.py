@@ -20,7 +20,7 @@ model.predict groups rows by pattern like ref GPz/predict.m:45-56.
 Precision, as in gpz_tpu: the moment-matched second moments are tiny
 differences of large sums (nu ~ 1e-6 against sum |terms| ~ 10 on the trained
 photo-z model), so the elementwise density chain runs in float64
-(`VARIANCE_DTYPE`) while the contractions against w / v / iSigma_w stay in
+(`variance_dtype()`) while the contractions against w / v / iSigma_w stay in
 the parameters' dtype.
 
 In the full-covariance family every evaluation of the design-matrix function
@@ -33,6 +33,8 @@ call, on the rows of several components at once.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -60,42 +62,58 @@ def _log_priors(priors):
     return torch.log(torch.clamp(priors, min=tiny))
 
 
-#: element budget of the pair pass, calibrated in f32 elements: the O(n m^2)
-#: moment-matching pass is tiled over blocks of basis index i so that the
-#: largest live tensor, (n, B, m, d_cost), stays within it. d_cost is d for
-#: the diagonal family and 1 for the full family, whose (n, B, m, d, d)
-#: systems exist only inside vc_lnphi_complete (the kernel's registers on the
-#: card, row blocks of the plain version on the CPU). PERF.md holds the
-#: measurement on the H100 that set this value and MISSING_PAIR_BUDGET.
-PAIR_BUDGET = 10**8
+# The four sizes below are read from the environment when the module is
+# imported, under gpz_tpu's names; the defaults are the port's own.
+
+#: element budget of the pair pass (env GPZ_PAIR_BUDGET), calibrated in f32
+#: elements: the O(n m^2) moment-matching pass is tiled over blocks of basis
+#: index i so that the largest live tensor, (n, B, m, d_cost), stays within
+#: it. d_cost is d for the diagonal family and 1 for the full family, whose
+#: (n, B, m, d, d) systems exist only inside vc_lnphi_complete (the kernel's
+#: registers or shared memory on the card, row blocks of the plain version on
+#: the CPU). PERF.md holds the measurement on the H100 that set this value
+#: and MISSING_PAIR_BUDGET.
+PAIR_BUDGET = int(os.environ.get("GPZ_PAIR_BUDGET", str(10**8)))
 
 #: the same budget for one launch of the full family's mixture sums with
-#: missing values: the (components * n, B * m) output of the rows of several
-#: mixture components against the pairs of a block.
-MISSING_PAIR_BUDGET = 3 * 10**7
+#: missing values (env GPZ_PAIR_BUDGET_MISSING): the (components * n, B * m)
+#: output of the rows of several mixture components against the pairs of a
+#: block.
+MISSING_PAIR_BUDGET = int(
+    os.environ.get("GPZ_PAIR_BUDGET_MISSING", str(3 * 10**7)))
 
-#: mixture-truncation width of the full-covariance missing-data path: the
-#: responsibilities are a softmax whose mass sits on a handful of bases on
-#: trained models, so each row keeps its top-L components, renormalized.
-#: L >= m is the exact sum. predict_moments_full reports the minimum per-row
-#: top-L mass and model.predict re-runs a batch with the exact sum when it
-#: falls below MIX_COVERAGE_MIN (flat responsibilities: untrained models,
-#: rows with few observed dims).
-MIX_TOPL = 64
+#: mixture-truncation width of the full-covariance missing-data path (env
+#: GPZ_MIX_TOPL): the responsibilities are a softmax whose mass sits on a
+#: handful of bases on trained models, so each row keeps its top-L
+#: components, renormalized. L >= m is the exact sum, and model.predict then
+#: runs no guard. predict_moments_full reports the minimum per-row top-L mass
+#: and model.predict re-runs a batch with the exact sum when it falls below
+#: MIX_COVERAGE_MIN (flat responsibilities: untrained models, rows with few
+#: observed dims).
+MIX_TOPL = int(os.environ.get("GPZ_MIX_TOPL", "64"))
 
-#: minimum per-row top-L responsibility mass (dropped mass <= 1 - this)
-MIX_COVERAGE_MIN = 0.999999
+#: minimum per-row top-L responsibility mass (dropped mass <= 1 - this; env
+#: GPZ_MIX_COVERAGE_MIN)
+MIX_COVERAGE_MIN = float(os.environ.get("GPZ_MIX_COVERAGE_MIN", "0.999999"))
 
-#: dtype of the moment-matching chain (gpz_tpu's variance_dtype() default)
-VARIANCE_DTYPE = torch.float64
 
-#: dtype of the mixture sums of the full-covariance missing-data path. The
-#: sums are nonnegative, so float32 passes its per-component error through
-#: linearly, but at a trained model's covariance scales that error is not
-#: small: at the trained photo-z point (cond(Sigma) ~ 5e7) float32 sums moved
-#: mu by 2.5e-2 on an NVIDIA H100, with no NaN and no gain in time (PERF.md).
-#: float64 is native on the card and the default; float32 stays selectable.
-MIX_DTYPE = torch.float64
+def variance_dtype() -> torch.dtype:
+    """dtype of the moment-matching chain: float64 unless
+    GPZ_VARIANCE_DTYPE names another (float32), read at each call as
+    gpz_tpu reads it."""
+    return getattr(torch, os.environ.get("GPZ_VARIANCE_DTYPE", "float64"))
+
+
+def mix_dtype() -> torch.dtype:
+    """dtype of the mixture sums of the full-covariance missing-data path
+    (env GPZ_MIX_DTYPE, read at each call). The sums are nonnegative, so
+    float32 passes its per-component error through linearly, but at a
+    trained model's covariance scales that error is not small: at the
+    trained photo-z point (cond(Sigma) ~ 5e7) float32 sums moved mu by
+    2.5e-2 on an NVIDIA H100, with no NaN and no gain in time (PERF.md).
+    float64 is native on the card and the port's default (gpz_tpu's is
+    float32); float32 stays selectable."""
+    return getattr(torch, os.environ.get("GPZ_MIX_DTYPE", "float64"))
 
 
 def _block_size(n: int, m: int, d_cost: int, budget: int = 0,
@@ -153,7 +171,7 @@ def predict_moments_diag(params, post, priors, cfg: ModelConfig, X,
     psi:      (n, d) input-noise variances (zeros when none)
     complete: True when mask_vec is all-True (skips the GMM conditioning)
     """
-    vdt = VARIANCE_DTYPE                      # density-chain dtype (f64)
+    vdt = variance_dtype()                    # density-chain dtype (f64)
     cdt = params.P.dtype                      # contraction dtype
     P = params.P.to(vdt)                      # (m, d)
     G = params.expand_gamma(cfg).to(vdt)
@@ -326,7 +344,7 @@ def predict_moments_full(params, post, priors, cfg: ModelConfig, X,
     """
     n, d = X.shape
     m = cfg.m
-    vdt = VARIANCE_DTYPE                      # density-chain dtype (f64)
+    vdt = variance_dtype()                    # density-chain dtype (f64)
     cdt = params.P.dtype                      # contraction dtype
     P = params.P.to(vdt)
     G = params.expand_gamma(cfg).to(vdt)      # (m, d, d)
@@ -394,7 +412,7 @@ def predict_moments_full(params, post, priors, cfg: ModelConfig, X,
         else:
             pio_t = Pio
         # component-major and contiguous, as the kernel's wrapper wants rows
-        mdt = MIX_DTYPE
+        mdt = mix_dtype()
         mix = (X_hat.transpose(0, 1).to(mdt).contiguous(),     # (L, n, d)
                Psi_hat.transpose(0, 1).to(mdt).contiguous(),   # (L, n, d, d)
                pio_t.transpose(0, 1).to(mdt).contiguous())     # (L, n)

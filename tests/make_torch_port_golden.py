@@ -1,9 +1,9 @@
 """Regenerate the golden files that hold gpz_tpu_torch against gpz_tpu where
 JAX is absent (chip_smoke.py on the GPU).
 
-    JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py [photoz] [train] [missing] [inference] [demos] [scale]
+    JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py [photoz] [train] [missing] [inference] [demos] [scale] [bands]
 
-With no argument all six files are written. `... make_torch_port_golden.py
+With no argument all seven files are written. `... make_torch_port_golden.py
 divergence [small|full]` writes nothing: it prints where demo_photoz's
 training trajectories part (`photoz_divergence`).
 
@@ -103,6 +103,12 @@ its 20,000-row sub-problem, from gpz_tpu on the CPU with its mixture scans
 in float64 (`jax_scale` lists the arrays; about nine minutes and 6 GB of
 host memory, most of it the four rows with NaNs, whose guarded batches
 escalate to the exact 1,000-component sum).
+
+tests/data/torch_port_golden_bands.npz holds the nine-band configuration
+(`bands_problem`: configs[2]'s widths at d = 9, VC, m=100, heteroscedastic,
+psi = diag(errs**2) (n, 9, 9), float64, on synthetic_sdss(filters=9)) where
+the CPU can compute it: its 1,000-row sub-problem, from gpz_tpu on the CPU
+with its mixture scans in float64 (`jax_bands` lists the arrays).
 
 (benchmarks/convergence_target.json keeps no trace of its run, so there is
 no time_to_target of it to keep; tests/test_torch_bench_convergence.py holds
@@ -1015,6 +1021,154 @@ def load_golden_scale() -> dict:
         return {k: z[k] for k in z.files}
 
 
+# --- wide-band surveys: nine bands, VC m=100 with full input noise ---
+
+GOLDEN_BANDS = os.path.join(HERE, "data", "torch_port_golden_bands.npz")
+BANDS = 9
+BANDS_SEED = 6
+BANDS_TRAIN = 70_000
+BANDS_VALID = 10_000
+BANDS_SERVE = 12_000
+BANDS_MISSING = 3_000
+BANDS_SUB = 1_000
+BANDS_TRACE_ITERS = 2
+BANDS_COMPLETE_ROWS = 16
+#: the golden rows with NaNs: this many of each pattern of lost bands, the
+#: first of the missing request's rows with that pattern
+BANDS_NAN_PICKS = (((0,), 2), ((4,), 1), ((0, 4), 1))
+
+#: how far gpz_tpu_torch may be from the nine-band golden values, (rtol,
+#: atol), on the CPU and on the GPU alike; an absolute bound for the flat
+#: parameters. The values are those of the sub-problem at its init point
+#: (Sigma = gamma^-2 I, well conditioned) and of its first iterations, where
+#: two float64 pipelines agree to rounding, so the bounds of the five-band
+#: golden files hold: init is host NumPy in both packages (TRAIN_TOL's
+#: init.flat); nlml and its gradient TRAIN_TOL's init bounds; the f trace
+#: TRAIN_TOL's; the complete rows GOLDEN_TOL's float64 bounds, set for a
+#: trained point; the rows with NaNs MISSING_TOL's float64 bounds, set for
+#: the same mixture sums at d = 5. d = 9 goes through the JAX package's jnp
+#: path (its Pallas gate stops at d = 6) and through the port's wide kernels
+#: on the card or their plain twins (torch.linalg past d = 8) on the CPU.
+BANDS_TOL = {
+    "sub.init.flat": TRAIN_TOL["init.flat"],
+    "init.nlml": TRAIN_TOL["init.nlml"], "init.grad": TRAIN_TOL["init.grad"],
+    "trace.f": TRAIN_TOL["trace.f"],
+    "complete": GOLDEN_TOL["float64"],
+    "missing": MISSING_TOL["float64"],
+}
+
+
+def bands_problem(synthetic_sdss):
+    """The nine-band configuration's data, drawn with the given package's
+    copy of synthetic_sdss: one draw of synthetic_sdss(95,000, filters=9,
+    seed=BANDS_SEED) with full input noise psi = diag(errs**2) (n, 9, 9).
+    Returns (X, Y, psi, training, validation, served, missing): the first
+    BANDS_TRAIN rows train, the next BANDS_VALID validate, `served` indexes
+    the next BANDS_SERVE (served complete) and `missing` is (indices, X with
+    NaNs) of the last BANDS_MISSING rows after inject_missing."""
+    n = BANDS_TRAIN + BANDS_VALID + BANDS_SERVE + BANDS_MISSING
+    mags, errs, z = synthetic_sdss(n, filters=BANDS, seed=BANDS_SEED)
+    psi = np.einsum("ni,ij->nij", errs ** 2, np.eye(BANDS))
+    tr = np.zeros(n, bool)
+    va = np.zeros(n, bool)
+    tr[:BANDS_TRAIN] = True
+    va[BANDS_TRAIN:BANDS_TRAIN + BANDS_VALID] = True
+    served = np.arange(BANDS_TRAIN + BANDS_VALID, n - BANDS_MISSING)
+    missing = np.arange(n - BANDS_MISSING, n)
+    return mags, z, psi, tr, va, served, (missing, inject_missing(
+        mags[missing]))
+
+
+def bands_nan_picks(Xm):
+    """Positions among the rows Xm of the golden rows with NaNs
+    (BANDS_NAN_PICKS), in pattern order."""
+    nan = np.isnan(Xm)
+    picks = []
+    for bands, count in BANDS_NAN_PICKS:
+        want = np.zeros(Xm.shape[1], bool)
+        want[list(bands)] = True
+        picks.append(np.where((nan == want[None, :]).all(axis=1))[0][:count])
+    return np.concatenate(picks)
+
+
+def jax_bands():
+    """{name: array} of the nine-band golden file, from gpz_tpu on the CPU
+    in float64 with its mixture scans in float64:
+
+      sub.init.flat           gpz_tpu.init (VC, m=M, heteroscedastic, psi
+                              (n, 9, 9), seed 1) on the first BANDS_SUB
+                              training rows alone: the sub-problem
+      init.nlml, init.grad    nlog_ml and its flat gradient at that point on
+                              those rows
+      trace.f, trace.fevals   gpz_tpu.train(max_iter=BANDS_TRACE_ITERS) of
+                              the sub-problem (no validation rows)
+      complete.<output>       gpz_tpu.predict at the sub-problem's init point
+                              for the first BANDS_COMPLETE_ROWS served rows
+      missing.<output>        the same for the rows of bands_nan_picks among
+                              the missing rows, by pattern group with the
+                              coverage guard (no padding); and
+                              missing.coverage / missing.escalated per row
+
+    The full-size run (70,000 x 100 pairs of 9 x 9 systems an evaluation) is
+    not here: gpz_tpu's jnp path holds (n, m, 9, 9) float64 temporaries of
+    4.5 GB each on the CPU. chip_smoke.py runs it on the card and holds
+    this sub-problem to these values."""
+    os.environ["GPZ_MIX_DTYPE"] = "float64"
+    sys.path.insert(0, ROOT)
+    import jax
+    from jax.flatten_util import ravel_pytree
+    import gpz_tpu
+    from gpz_tpu import datautils
+    from gpz_tpu.data import synthetic_sdss
+    from gpz_tpu.model import _make_dataset
+    from gpz_tpu.objective import nlog_ml
+
+    X, Y, psi, tr, va, served, (idx, Xm) = bands_problem(synthetic_sdss)
+    sub = slice(0, BANDS_SUB)
+    model = gpz_tpu.init(X[sub], Y[sub], "VC", M, heteroscedastic=True,
+                         psi=psi[sub], seed=SEED, dtype="float64")
+    out = {"sub.init.flat": np.asarray(ravel_pytree(model.last.params)[0])}
+
+    Xn = (X[sub] - model.muX[None, :]) / model.sdX[None, :]
+    Yc = Y[sub, None] - model.muY[None, :]
+    psi_c = datautils.fix_psi(psi[sub], BANDS_SUB, model.sdX, True)
+    data = _make_dataset(Xn, Yc, psi_c, np.ones(BANDS_SUB),
+                         np.ones(BANDS_SUB, bool), np.float64)
+    (f, _), g = jax.value_and_grad(
+        lambda p: nlog_ml(p, data, model.cfg, complete=True),
+        has_aux=True)(model.last.params)
+    out["init.nlml"] = np.asarray(f)
+    out["init.grad"] = np.asarray(ravel_pytree(g)[0])
+
+    c = served[:BANDS_COMPLETE_ROWS]
+    pred = gpz_tpu.predict(X[c], model, psi=psi[c])
+    for k in OUTPUTS:
+        out[f"complete.{k}"] = np.asarray(getattr(pred, k))
+    picks = bands_nan_picks(Xm)
+    got, groups = _jax_predict_unpadded(model, Xm[picks], psi[idx[picks]])
+    for k in OUTPUTS:
+        out[f"missing.{k}"] = got[k]
+    out["missing.picks"] = picks
+    out["missing.coverage"] = np.zeros(len(picks))
+    out["missing.escalated"] = np.zeros(len(picks), bool)
+    for grows, cov, esc in groups:
+        out["missing.coverage"][grows] = cov
+        out["missing.escalated"][grows] = esc
+
+    fit = gpz_tpu.train(model, X[sub], Y[sub], psi=psi[sub],
+                        max_iter=BANDS_TRACE_ITERS,
+                        max_attempts=MAX_ATTEMPTS, verbose=False).fit_info
+    keep = slice(0, fit["iterations"] + 1)
+    out["trace.f"] = np.asarray(fit["trace"]["f"])[keep]
+    out["trace.fevals"] = np.asarray(fit["trace"]["fevals"])[keep]
+    return out
+
+
+def load_golden_bands() -> dict:
+    with np.load(GOLDEN_BANDS) as z:
+        return {k: z[k] for k in z.files}
+
+
 def main(which):
     os.makedirs(os.path.dirname(GOLDEN), exist_ok=True)
     if "photoz" in which:
@@ -1043,6 +1197,9 @@ def main(which):
     if "scale" in which:
         np.savez_compressed(GOLDEN_SCALE, seed=SCALE_SEED, **jax_scale())
         print(f"wrote {GOLDEN_SCALE} ({os.path.getsize(GOLDEN_SCALE)} bytes)")
+    if "bands" in which:
+        np.savez_compressed(GOLDEN_BANDS, seed=BANDS_SEED, **jax_bands())
+        print(f"wrote {GOLDEN_BANDS} ({os.path.getsize(GOLDEN_BANDS)} bytes)")
 
 
 if __name__ == "__main__":
@@ -1050,4 +1207,4 @@ if __name__ == "__main__":
         photoz_divergence(sys.argv[2] if len(sys.argv) > 2 else "small")
     else:
         main(sys.argv[1:] or ["photoz", "train", "missing", "inference",
-                              "demos", "scale"])
+                              "demos", "scale", "bands"])

@@ -126,7 +126,7 @@ def test_gc_two_outputs_homoscedastic_matches_jax(jax_mix64):
 def test_jaxs_float32_mixture_default_is_close():
     """gpz_tpu's default runs the mixture scans in float32; the port's
     float64 sums are within float32's reach of it, and its own float32
-    setting (MIX_DTYPE) is as close to the float64 one."""
+    setting (GPZ_MIX_DTYPE) is as close to the float64 one."""
     model, data = small_model("VC", 5), rows(6, True, PATTERNS["one-missing"])
     got = port(model, *data)
     assert_outputs(got, jax(model, *data), **MIX32)
@@ -137,7 +137,7 @@ def test_mix_dtype_float32_is_selectable(monkeypatch):
     want = port(model, *data)
     seen = []
     real = tpredict.vc_lnphi_complete
-    monkeypatch.setattr(tpredict, "MIX_DTYPE", torch.float32)
+    monkeypatch.setenv("GPZ_MIX_DTYPE", "float32")
     monkeypatch.setattr(
         tpredict, "vc_lnphi_complete",
         lambda *a: (seen.append(a[0].dtype), real(*a))[1])

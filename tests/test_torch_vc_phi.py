@@ -100,17 +100,16 @@ def _bad_calls():
         X, psi, P, Sigma, lds = a
         return X, psi.transpose(1, 2), P, Sigma, lds
 
-    def wide(a):
-        n, m = a[0].shape[0], a[2].shape[0]
-        return tuple(map(torch.from_numpy, make_inputs(
-            np.random.default_rng(4), n, 9, m)))
+    def no_band(a):
+        X, psi, P, Sigma, lds = a
+        return X[:, :0], psi[:, :0, :0], P[:, :0], Sigma[:, :0, :0], lds
 
     def integer(a):
         return tuple(t.to(torch.int64) for t in a)
 
     return [("mismatched-shape", shape), ("mismatched-rows", rows),
             ("mixed-dtype", dtype), ("non-contiguous", strided),
-            ("d-above-8", wide), ("integer", integer)]
+            ("d-zero", no_band), ("integer", integer)]
 
 
 @pytest.mark.parametrize("mutate", [f for _, f in _bad_calls()],
