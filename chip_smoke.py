@@ -9,7 +9,10 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. device      the card's name and power limit (nvidia-smi), torch's name
 2. build       gpz_tpu_torch/csrc/vc_phi.cu with nvcc (one library holding
                the forward and the backward kernel), timed, with ptxas'
-               register and spill report
+               register and spill report; the source's dispatch table read
+               (which design takes which d); fails on a spill or a
+               local-memory access in a body the table uses past d = 8, or
+               on a CALL in any body
 3. kernel      vc_lnphi_complete (the CUDA forward kernel) against
                vc_lnphi_plain (the same function in plain PyTorch), both on
                the card: random well-conditioned inputs at tests/test_ops.py's
@@ -196,15 +199,20 @@ Phases, each printing its own lines; any failure exits non-zero:
                shape (a)-(d) launched: at (10**6 x 1000) plain runs once in
                row chunks, out of the timing loop. Then one evaluation at
                full size under the profiler
-21. bands    wide-band surveys: (a) the kernels' wide variant (d > 8,
-               d a runtime argument) against plain: forward and backward at
-               (70,000 x 100) for d = 9, 12, 16 and (4,000 x 100) for d =
-               32, random well-conditioned float64 inputs, within
-               KERNEL_TOL / KERNEL_BWD_TOL, two backward launches
-               bit-identical, CUDA-event times against the bound; small
-               shapes at d = 9..48 in float64 (against autograd too) and
-               float32, NaN at a non-PD A, a two-set backward bit-equal to
-               each set alone. (b) the nine-band configuration
+21. bands    wide-band surveys: (a) the kernels past d = 8 (register
+               templates to d = 18 forward and 13 backward, thread groups
+               to d = 32, the strided workspace past that) against plain:
+               forward and backward at (70,000 x 100) for d = 9, 12, 16
+               and (4,000 x 100) for d = 32, random well-conditioned
+               float64 inputs, within KERNEL_TOL / KERNEL_BWD_TOL, two
+               backward launches bit-identical, CUDA-event times against
+               the bound; small shapes (WIDE_SMALL: every register width,
+               both group widths with idle lanes and without, d = 36 and
+               48) in float64 and float32 (against autograd too), a few
+               rows on a million bases (WIDE_MANY_BASES), NaN exactly at a
+               non-PD A and a two-set backward bit-equal to each set
+               alone, at a d of each design. (b) the
+               nine-band configuration
                (make_torch_port_golden.bands_problem: configs[2]'s widths at
                d = 9, VC m=100, psi (n, 9, 9), float64): its 1,000-row
                sub-problem against tests/data/torch_port_golden_bands.npz
@@ -319,6 +327,17 @@ SCALE_ITERS = 25
 # MIX_TOPL >= m
 BANDS_ITERS = 25
 WIDE_SHAPES = ((70_000, 9), (70_000, 12), (70_000, 16), (4_000, 32))
+# small (300 x 37) cases of the wide pair against plain and autograd: every
+# d the register designs and the groups take in float64, idle group lanes
+# (d = 13-15, 17-31) and the strided kernels' shared-memory and global
+# scratch bodies in both types (d = 36, 48)
+WIDE_SMALL = {"float64": (9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 20, 27, 32,
+                          36, 48),
+              "float32": (9, 11, 13, 14, 15, 16, 18, 20, 27, 32, 48)}
+# (rows, d, bases): a call on more bases than a grid's second dimension
+# holds chunks of the group kernels (16 or 8 bases a backward chunk, 16 a
+# 32-lane forward chunk)
+WIDE_MANY_BASES = ((3, 20, 1_048_577), (2, 16, 1_048_577))
 SAMPLE_ROWS = 128
 SAMPLE_ABOVE = 2 * 10**6
 TOPL_ROWS = 250
@@ -416,6 +435,25 @@ def random_inputs(rng, n, d, m, dtype, device, scale=1.0):
     logdet = np.linalg.slogdet(Sigma)[1]
     return tuple(torch.as_tensor(a, dtype=dtype, device=device)
                  for a in (X, psi, P, Sigma, logdet))
+
+
+def many_bases_inputs(gen, n, d, m, dtype, device):
+    """random_inputs' distributions for m bases made on the card: P drawn
+    per basis, Sigma_j and its log-determinant from a pool of 997 drawn
+    ones (j mod 997: a prime, so no chunk repeats another's)."""
+    import torch
+
+    def normal(*shape):
+        return torch.randn(shape, dtype=dtype, device=device, generator=gen)
+
+    eye = torch.eye(d, dtype=dtype, device=device)
+    A = normal(n, d, d) * 0.3
+    B = normal(997, d, d) * 0.2
+    pool = B @ B.transpose(1, 2) + 0.5 * eye
+    pick = torch.arange(m, device=device) % 997
+    return (normal(n, d), A @ A.transpose(1, 2) + 0.2 * eye, normal(m, d),
+            pool[pick].contiguous(),
+            torch.linalg.slogdet(pool)[1][pick].contiguous())
 
 
 def shape_line(args):
@@ -783,11 +821,114 @@ def objective_at(flat, unravel, data, cfg, complete=True):
     return float(nlml.detach()), grad.cpu().numpy()
 
 
-def sass_check(so: str):
-    """cuobjdump -sass of the built library: no instantiation of the forward
-    or the backward kernel may hold a CALL (an IEEE division or square root,
-    and CUDA's rsqrt(), each call a slow path). Prints the instruction
-    counts of the two <double, 5> kernels."""
+def dispatch_table() -> dict:
+    """The table by which csrc/vc_phi.cu's entry points send d to a kernel:
+    D_MAX (register templates), FWD_REG_MAX and BWD_REG_MAX (the register
+    designs past D_MAX), GROUP_MAX (the group kernels; past it the strided
+    workspace)."""
+    from gpz_tpu_torch.ops import vc_phi
+
+    with open(vc_phi.SOURCE) as fh:
+        src = fh.read()
+    return {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+            for k in ("D_MAX", "FWD_REG_MAX", "BWD_REG_MAX", "GROUP_MAX")}
+
+
+def kernel_body(name: str):
+    """(kernel, "double" or "float", D or G or None) of a kernel body's
+    mangled name, None for other functions."""
+    got = re.search(r"(vc_lnphi_(?:fwd|bwd)(?:_ssum|_group|_wide)?_kernel)"
+                    r"I([df])(?:Li(\d+)E)?E", name)
+    if got is None:
+        return None
+    return (got.group(1), "double" if got.group(2) == "d" else "float",
+            int(got.group(3)) if got.group(3) else None)
+
+
+def dispatched_wide(body, table) -> bool:
+    """Whether the table sends some D_MAX < d <= GROUP_MAX to this body."""
+    kernel, _, k = body
+    if kernel == "vc_lnphi_fwd_kernel":
+        return table["D_MAX"] < k <= table["FWD_REG_MAX"]
+    if kernel == "vc_lnphi_bwd_ssum_kernel":
+        return table["D_MAX"] < k <= table["BWD_REG_MAX"]
+    if kernel.endswith("_group_kernel"):
+        lo = table["FWD_REG_MAX" if "_fwd_" in kernel else "BWD_REG_MAX"]
+        return k == 32 or lo < 16     # G = 16 takes lo < d <= 16
+    return False
+
+
+def body_for(kind: str, d: int, table) -> tuple:
+    """(kernel, D or G) of the body that takes width d (8 < d <= 32) in
+    float64."""
+    if kind == "fwd" and d <= table["FWD_REG_MAX"]:
+        return "vc_lnphi_fwd_kernel", d
+    if kind == "bwd" and d <= table["BWD_REG_MAX"]:
+        return "vc_lnphi_bwd_ssum_kernel", d
+    return f"vc_lnphi_{kind}_group_kernel", 16 if d <= 16 else 32
+
+
+def expected_bodies(table) -> int:
+    """Kernel bodies the library holds: both types of the two templates to
+    D_MAX, of the register designs to FWD_REG_MAX / BWD_REG_MAX, of the
+    group kernels the table uses, and of the two strided-workspace
+    kernels."""
+    groups = sum(2 if table[k] < 16 else 1
+                 for k in ("FWD_REG_MAX", "BWD_REG_MAX"))
+    # 2 types x (D_MAX + FWD_REG_MAX - D_MAX forward bodies, as many
+    # backward to BWD_REG_MAX, the groups, two strided kernels)
+    return 2 * (table["FWD_REG_MAX"] + table["BWD_REG_MAX"] + groups + 2)
+
+
+def build_report(log_text: str, table) -> dict:
+    """ptxas -v's report per kernel body, {mangled name: {"registers",
+    "spill_stores", "spill_loads", "stack"}}; prints the <double, 5> and
+    <double, 8> templates', the strided-workspace kernels' and every body
+    the table uses past D_MAX, and fails on a spill in one of the latter
+    (either type)."""
+    reports, name = {}, None
+    for line in log_text.splitlines():
+        got = re.search(r"Compiling entry function '([^']+)'", line)
+        if got:
+            name = got.group(1)
+            reports[name] = {}
+            continue
+        if name is None:
+            continue
+        for key, pat in (("stack", r"(\d+) bytes stack frame"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("registers", r"Used (\d+) registers")):
+            got = re.search(pat, line)
+            if got:
+                reports[name][key] = int(got.group(1))
+    for fn, rep in reports.items():
+        body = kernel_body(fn)
+        if body is None:
+            continue
+        kernel, kind, k = body
+        wide = dispatched_wide(body, table)
+        if kind == "double" and (wide or k in (5, 8) or k is None):
+            print(f"build: {kernel}<{kind}{'' if k is None else f', {k}'}>:"
+                  f" {rep.get('registers')} registers, stack "
+                  f"{rep.get('stack')} B, spill stores "
+                  f"{rep.get('spill_stores')} B, loads "
+                  f"{rep.get('spill_loads')} B")
+        if wide:
+            check(rep.get("spill_stores", 0) == 0
+                  and rep.get("spill_loads", 0) == 0,
+                  f"ptxas: {kernel}<{kind}, {k}> spills, and the table "
+                  "dispatches to it")
+    return reports
+
+
+def sass_check(so: str, table):
+    """cuobjdump -sass of the built library: no kernel body may hold a CALL
+    (an IEEE division or square root, and CUDA's rsqrt(), each call a slow
+    path), and no body the table uses past D_MAX a local-memory access
+    (LDL / STL). Prints the instruction counts of the two <double, 5>
+    kernels, the strided-workspace ones, and of the bodies that take d = 9,
+    12, 16 and 32 in float64."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     res = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"),
@@ -803,19 +944,32 @@ def sass_check(so: str):
         if name and got:
             op = got.group(1)
             counts[name][op] = counts[name].get(op, 0) + 1
-    kernels = {fn: c for fn, c in counts.items()
-               if "vc_lnphi_fwd_kernel" in fn or "vc_lnphi_bwd_kernel" in fn
-               or "_wide_kernel" in fn}
-    check(len(kernels) == 36, f"sass: {len(kernels)} kernel bodies, not 36")
+    kernels = {fn: c for fn, c in counts.items() if kernel_body(fn)}
+    want = expected_bodies(table)
+    check(len(kernels) == want,
+          f"sass: {len(kernels)} kernel bodies, not {want}")
+    shown = {("vc_lnphi_fwd_kernel", 5), ("vc_lnphi_bwd_kernel", 5),
+             ("vc_lnphi_fwd_wide_kernel", None),
+             ("vc_lnphi_bwd_wide_kernel", None)}
+    shown |= {body_for(kind, d, table) for kind in ("fwd", "bwd")
+              for d in (9, 12, 16, 32)}
     for fn, c in kernels.items():
-        check(c.get("CALL", 0) == 0, f"sass: {fn} holds a CALL")
-        if "IdLi5E" in fn or "wide_kernelIdE" in fn:
-            what = "bwd" if "bwd" in fn else "fwd"
-            what += " wide <double>" if "_wide_" in fn else " <double, 5>"
-            print(f"sass: {what}: {sum(c.values())} instructions, "
+        body = kernel_body(fn)
+        if body[1] == "double" and (body[0], body[2]) in shown:
+            print(f"sass: {body[0]}<double"
+                  f"{'' if body[2] is None else f', {body[2]}'}>: "
+                  f"{sum(c.values())} instructions, "
                   + ", ".join(f"{k} {c.get(k, 0)}" for k in (
                       "DFMA", "DMUL", "DADD", "MUFU", "BRA", "CALL", "LDS",
-                      "LDG", "LDGSTS", "BAR")))
+                      "STS", "LDL", "STL", "LDG", "LDGSTS", "SHFL", "BAR",
+                      "WARPSYNC")))
+    for fn, c in kernels.items():
+        body = kernel_body(fn)
+        check(c.get("CALL", 0) == 0, f"sass: {fn} holds a CALL")
+        if dispatched_wide(body, table):
+            check(c.get("LDL", 0) == 0 and c.get("STL", 0) == 0,
+                  f"sass: {body} reaches local memory (LDL {c.get('LDL', 0)},"
+                  f" STL {c.get('STL', 0)})")
 
 
 def profile_evaluation(fun, flat):
@@ -2036,9 +2190,9 @@ def phase_scale(device=None) -> tuple:
 
 
 def phase_wide(dev) -> dict:
-    """Phase 21 (a): the wide variant of the kernel pair (d > 8) against
-    plain on the card; returns {d: (forward record, backward record)} at
-    WIDE_SHAPES."""
+    """Phase 21 (a): the kernel pair past d = 8 (each design of the source's
+    dispatch table) against plain on the card; returns {d: (forward record,
+    backward record)} at WIDE_SHAPES."""
     import torch
     from gpz_tpu_torch.ops import vc_phi
 
@@ -2062,39 +2216,56 @@ def phase_wide(dev) -> dict:
                        bound_by=b["bound_by"])
         wide[d] = (rec_f, rec_b)
         del args, g
-    for d, dt_name in ((9, "float64"), (12, "float64"), (16, "float64"),
-                       (32, "float64"), (48, "float64"), (9, "float32"),
-                       (16, "float32"), (32, "float32")):
-        args = random_inputs(rng, 300, d, 37, getattr(torch, dt_name), dev)
-        name = f"wide-random-{dt_name}-d{d}-300x37"
-        compare_kernel(name, args, KERNEL_TOL[dt_name])
-        g = torch.randn((300, 37), dtype=args[0].dtype, device=dev,
+    few = dict(trials=3, calls=2, warmup=1)
+    for dt_name, widths in WIDE_SMALL.items():
+        for d in widths:
+            args = random_inputs(rng, 300, d, 37, getattr(torch, dt_name),
+                                 dev)
+            name = f"wide-random-{dt_name}-d{d}-300x37"
+            compare_kernel(name, args, KERNEL_TOL[dt_name], plain_timing=few)
+            g = torch.randn((300, 37), dtype=args[0].dtype, device=dev,
+                            generator=gen)
+            compare_backward(name, args, g, KERNEL_BWD_TOL[dt_name])
+    for n, d, m in WIDE_MANY_BASES:
+        args = many_bases_inputs(gen, n, d, m, f64, dev)
+        g = torch.randn((n, m), dtype=f64, device=dev, generator=gen)
+        compare_big(f"wide-many-bases-d{d}-{n}x{m}", args, g, rows=n,
+                    tol="float64")
+        del args, g
+        torch.cuda.empty_cache()
+    # one d of each design: register templates, 16- and 32-lane groups
+    for d in (12, 16, 32):
+        X_, psi_, P_, Sigma_, lds_ = random_inputs(rng, 23, d, 6, f64, dev)
+        Sigma_[[1, 4]] = -5.0 * torch.eye(d, dtype=f64, device=dev)
+        lds_[[1, 4]] = 0.0
+        non_pd = (X_, psi_, P_, Sigma_, lds_)
+        compare_kernel(f"wide-non-pd-float64-d{d}-23x6", non_pd,
+                       KERNEL_TOL["float64"])
+        nan = torch.isnan(vc_phi.vc_lnphi_complete(*non_pd))
+        check(bool(nan[:, [1, 4]].all())
+              and not bool(nan[:, [0, 2, 3, 5]].any()),
+              f"wide non-pd d={d}: NaN is not exactly in the columns of the "
+              "indefinite bases")
+    for d in (9, 12, 16, 32):
+        X_, psi_, P_, Sigma_, _ = random_inputs(rng, 2000, d, 2 * TRAIN_M,
+                                                f64, dev)
+        g = torch.randn((2000, 2 * TRAIN_M), dtype=f64, device=dev,
                         generator=gen)
-        compare_backward(name, args, g, KERNEL_BWD_TOL[dt_name])
-    X_, psi_, P_, Sigma_, lds_ = random_inputs(rng, 23, 12, 6, f64, dev)
-    Sigma_[[1, 4]] = -5.0 * torch.eye(12, dtype=f64, device=dev)
-    lds_[[1, 4]] = 0.0
-    non_pd = (X_, psi_, P_, Sigma_, lds_)
-    compare_kernel("wide-non-pd-float64-d12-23x6", non_pd,
-                   KERNEL_TOL["float64"])
-    nan = torch.isnan(vc_phi.vc_lnphi_complete(*non_pd))
-    check(bool(nan[:, [1, 4]].all()) and not bool(nan[:, [0, 2, 3, 5]].any()),
-          "wide non-pd: NaN is not exactly in the columns of the indefinite "
-          "bases")
-    X_, psi_, P_, Sigma_, _ = random_inputs(rng, 2000, 9, 2 * TRAIN_M,
-                                            f64, dev)
-    g = torch.randn((2000, 2 * TRAIN_M), dtype=f64, device=dev, generator=gen)
-    both = vc_phi.vc_lnphi_bwd(X_, psi_, P_, Sigma_, g, 2)
-    for s_, cols in enumerate((slice(0, TRAIN_M), slice(TRAIN_M, None))):
-        alone = vc_phi.vc_lnphi_bwd(X_, psi_, P_[cols].contiguous(),
-                                    Sigma_[cols].contiguous(),
-                                    g[:, cols].contiguous())
-        check(all(torch.equal(a[cols], b) for a, b in zip(both, alone)),
-              f"wide sets: set {s_} of a two-set backward differs from the "
-              "set alone")
+        both = vc_phi.vc_lnphi_bwd(X_, psi_, P_, Sigma_, g, 2)
+        for s_, cols in enumerate((slice(0, TRAIN_M), slice(TRAIN_M, None))):
+            alone = vc_phi.vc_lnphi_bwd(X_, psi_, P_[cols].contiguous(),
+                                        Sigma_[cols].contiguous(),
+                                        g[:, cols].contiguous())
+            check(all(torch.equal(a[cols], b) for a, b in zip(both, alone)),
+                  f"wide sets d={d}: set {s_} of a two-set backward differs "
+                  "from the set alone")
     print(f"bands-wide: the wide pair vs plain in "
-          f"{time.perf_counter() - t0:.1f} s; a two-set backward at "
-          f"(2000 x {2 * TRAIN_M}) d=9 bit-equal to each set alone")
+          f"{time.perf_counter() - t0:.1f} s (300 x 37 at d = "
+          f"{', '.join(f'{k}: {v}' for k, v in WIDE_SMALL.items())}; "
+          f"{', '.join(f'{n} x {m} at d = {d}' for n, d, m in WIDE_MANY_BASES)}"
+          f"); NaN exactly at the non-PD "
+          f"bases at d = 12, 16, 32; a two-set backward at (2000 x "
+          f"{2 * TRAIN_M}) bit-equal to each set alone at d = 9, 12, 16, 32")
     for d, (rf, rb) in wide.items():
         print(f"times wide d={d} ({rf['shape'][0]} x {TRAIN_M}) f64: fwd "
               f"kernel {rf['ms']:.4f} ms, {rf['ms'] / rf['bound_ms']:.2f}x "
@@ -2106,15 +2277,18 @@ def phase_wide(dev) -> dict:
 
 
 def phase_bands(topl_batch, device=None) -> tuple:
-    """21. Wide-band surveys. (a) the wide kernel pair (d > 8) against plain
+    """21. Wide-band surveys. (a) the kernel pair past d = 8 against plain
     on the card: forward and backward at WIDE_SHAPES (70,000 x 100 for d =
     9, 12, 16; 4,000 x 100 for d = 32) on random well-conditioned float64
     inputs within KERNEL_TOL / KERNEL_BWD_TOL, two backward launches
-    bit-identical, times against the bound; 300 x 37 at d = 9, 12, 16, 32,
-    48 in float64 (also against autograd through plain) and at d = 9, 16,
-    32 in float32 (d = 48 forward and d = 32 backward in float64 work in
-    the global scratch, the others in shared memory); NaN exactly at a
-    non-PD A; a backward of two sets of bases bit-equal to each set alone.
+    bit-identical, times against the bound; 300 x 37 at every WIDE_SMALL
+    width in both types (also against autograd through plain: the register
+    designs, 16- and 32-lane groups with idle lanes and without, the
+    strided workspace in shared memory and in global scratch); a few rows
+    on a million bases (WIDE_MANY_BASES, more chunks than a grid's second
+    dimension holds);
+    NaN exactly at a non-PD A (d = 12, 16, 32); a backward of two sets of
+    bases bit-equal to each set alone (d = 9, 12, 16, 32).
     (b) the nine-band configuration (make_torch_port_golden.bands_problem:
     VC m=100, d=9, psi (n, 9, 9), float64) through the entry points: its
     1,000-row sub-problem against tests/data/torch_port_golden_bands.npz
@@ -2130,8 +2304,8 @@ def phase_bands(topl_batch, device=None) -> tuple:
     batch, once with the default top-64 sum (guarded; it escalates to the
     exact sum) and once under GPZ_MIX_TOPL=1000 (the predict module
     reloaded): bit-equal, with the seconds and launches of each. Returns
-    ((fwd, bwd) launches of (b), (fwd, bwd) launches of (c), wide forward
-    and backward records at 70,000 x 100, d = 9, forward sites, backward
+    ((fwd, bwd) launches of (b), (fwd, bwd) launches of (c), phase_wide's
+    {d: (forward record, backward record)}, forward sites, backward
     sites)."""
     import torch
     import gpz_tpu_torch
@@ -2359,7 +2533,7 @@ def phase_bands(topl_batch, device=None) -> tuple:
     check(got == want and all(c > 0 for c in got),
           f"bands: launches {got}, the path implies {want}")
     print(f"bands: main path in {time.perf_counter() - t_b:.1f} s; "
-          f"LAUNCHES_FWD / LAUNCHES_BWD {got} (the wide variant at d="
+          f"LAUNCHES_FWD / LAUNCHES_BWD {got} (the register templates at d="
           f"{BANDS}) as the path implies: objective {want_f}, {want_b}; "
           f"predict {want_pred}")
     del pc, pm, loaded
@@ -2418,7 +2592,7 @@ def phase_bands(topl_batch, device=None) -> tuple:
           f"GPZ_MIX_TOPL={m_k} {exact_s:.3f} s, launches {exact_launches}; "
           "outputs bit-equal")
     print(f"bands: phase 21 in {time.perf_counter() - t_phase:.1f} s")
-    return got, exact_launches, wide[BANDS], fwd, bwd
+    return got, exact_launches, wide, fwd, bwd
 
 
 def host_ms(fn) -> float:
@@ -3350,25 +3524,16 @@ def main(argv) -> int:
     vc_phi.library()
     build_s = time.perf_counter() - t0
     print(f"build: {os.path.relpath(so, ROOT)} in {build_s:.2f} s")
-    log = so[:-3] + ".log"
-    if os.path.exists(log):
-        with open(log) as fh:
-            lines = fh.read().splitlines()
-        # ptxas names a function, then reports its registers and spills
-        for i, line in enumerate(lines):
-            if "Compiling entry function" in line and (
-                    "IdLi5E" in line or "IdLi8E" in line
-                    or "wide_kernelI" in line):
-                report = " ".join(s.strip() for s in lines[i + 1:i + 4]
-                                  if "registers" in s or "spill" in s)
-                what = "bwd" if "bwd_" in line else "fwd"
-                if "wide_kernelI" in line:
-                    kind = "double" if "wide_kernelId" in line else "float"
-                    print(f"build: {what} wide <{kind}>: {report}")
-                    continue
-                dd = 5 if "IdLi5E" in line else 8
-                print(f"build: {what} <double, {dd}>: {report}")
-    sass_check(so)
+    table = dispatch_table()
+    print(f"build: dispatch table {table}")
+    with open(so[:-3] + ".log") as fh:
+        log = fh.read()
+    # the library's parts, compiled in parallel: each one's exit and end
+    for line in log.splitlines():
+        if line.startswith(("part ", "link: ")):
+            print(f"build: {line}")
+    build_report(log, table)
+    sass_check(so, table)
 
     # 3. forward kernel vs plain
     rng = np.random.default_rng(0)
@@ -3934,7 +4099,7 @@ def main(argv) -> int:
         train_s / evals * 1e3)
     new_paths["demos"], demo_fwd, demo_bwd = phase_demos()
     new_paths["scale"], scale_fwd, scale_bwd, topl_batch = phase_scale()
-    bands_launches, new_paths["mix_topl"], wide_rec, bands_fwd, bands_bwd = (
+    bands_launches, new_paths["mix_topl"], wide_recs, bands_fwd, bands_bwd = (
         phase_bands(topl_batch))
     del topl_batch
     new_paths["convergence"] = conv_launches
@@ -3978,11 +4143,13 @@ def main(argv) -> int:
            if k_ in ("bound_ms", "bound_by")},
         "library_ms": None,
     }]
-    # the wide variant (d > 8) of each kernel: launched on the nine-band
-    # path only; its times at (70,000 x 100), d = 9, from phase 21 (a)
-    for kind, rec, launched, sites in (
-            ("fwd", wide_rec[0], bands_launches[0], bands_fwd),
-            ("bwd", wide_rec[1], bands_launches[1], bands_bwd)):
+    # each kernel past d = 8 (at d = 9 its register template): launched on
+    # the nine-band path only; its times at (70,000 x 100), d = 9, from
+    # phase 21 (a), with the d = 32 group kernel's beside them
+    for i_, (kind, launched, sites) in enumerate((
+            ("fwd", bands_launches[0], bands_fwd),
+            ("bwd", bands_launches[1], bands_bwd))):
+        rec = wide_recs[9][i_]
         kernels.append({
             "name": f"vc_lnphi_{kind}_wide", "route": "cuda",
             "source": source,
@@ -3997,6 +4164,12 @@ def main(argv) -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": None,
+            # every WIDE_SHAPES width: the register templates at d = 12,
+            # at 16 the forward's template and the backward's 16-lane group,
+            # the 32-lane groups at 32
+            "by_d": {str(d): {k_: r_[i_][k_] for k_ in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "max_abs_err")} for d, r_ in wide_recs.items()},
         })
     for k_ in kernels:
         k_["ms_over_bound"] = k_["ms"] / k_["bound_ms"]

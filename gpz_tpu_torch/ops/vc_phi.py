@@ -15,12 +15,17 @@ The kernels (csrc/vc_phi.cu) replace gpz_tpu/ops/vc_phi.py::_fwd_kernel and
 reciprocal form (one rsqrt per column, no division, no square root, one
 logarithm per pair), every thread of a block at work whatever m is, and a
 grid of one whole wave of equal blocks; the source note says what bounds
-them. d <= 8 runs templates that hold a pair in registers; any wider d runs
-a wide variant with d a runtime argument, whose pairs work in shared memory
-(or, past what it holds, in a global scratch that `_workspace` allocates).
+them. A table in the source sends each d to one design: to d = 18 in the
+forward and 13 in the backward templates that hold a pair's factor in
+registers (past d = 8 the backward's sums in shared memory), from there to
+d = 32 a group of 16 or 32 threads per pair with a row of the factor in
+each lane's registers, and any wider d
+to kernels with d a runtime argument whose pairs work in a strided
+workspace in shared memory (or, past what it holds, in a global scratch
+that `_workspace` allocates).
 They are built with nvcc at first use into gpz_tpu_torch/_build/, keyed by
-a hash of the source and the flags (no fast-math flag among them), and
-loaded with ctypes.
+a hash of the source and the flags (no fast-math flag among them), in
+parallel parts linked into one library, and loaded with ctypes.
 
 `vc_lnphi_complete` is differentiable in P, Sigma and logdet_Sigma through
 the autograd.Function `VcLnPhi`; X and psi are data, and asking for their
@@ -36,7 +41,9 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
+import time
 
 import torch
 
@@ -64,7 +71,7 @@ SOURCE = os.path.join(_PKG, "csrc", "vc_phi.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LIB = None
@@ -76,34 +83,65 @@ def _plain_rows(m: int, d: int) -> int:
     return max(1, min(PHI_BLOCK_ROWS, PLAIN_BLOCK_ELEMS // max(1, m * d * d)))
 
 
-def build() -> str:
-    """Compile csrc/vc_phi.cu (once per source/flags hash); returns the
-    shared library's path. nvcc's output, with ptxas' register and shared
-    memory report, is kept beside it as <library>.log."""
+def parts(src: bytes) -> int:
+    """Parts a library source is compiled as: one more than the highest k
+    of its GPZ_IN_PART(k), 1 for a source without."""
+    ks = [int(k) for k in re.findall(rb"GPZ_IN_PART\((\d+)\)", src)]
+    return max(ks) + 1 if ks else 1
+
+
+def build(src: bytes | None = None, name: str = "libgpz_vc_phi") -> str:
+    """Compile csrc/vc_phi.cu (or the library source `src`) once per
+    source/flags hash, as `parts(src)` objects (-DGPZ_PART=k), one nvcc
+    process each, all started together, linked into one shared library;
+    returns its path. nvcc's output, with ptxas' register and shared memory
+    report and each part's seconds, is kept beside it as <library>.log."""
     from torch.utils.cpp_extension import CUDA_HOME
 
-    with open(SOURCE, "rb") as fh:
-        src = fh.read()
+    if src is None:
+        with open(SOURCE, "rb") as fh:
+            src = fh.read()
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = os.path.join(BUILD_DIR, f"libgpz_vc_phi-{key}.so")
+    so = os.path.join(BUILD_DIR, f"{name}-{key}.so")
     if os.path.exists(so):
         return so
     if CUDA_HOME is None:
         raise RuntimeError("no CUDA toolkit found (set CUDA_HOME) to build "
                            f"{SOURCE}")
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [os.path.join(CUDA_HOME, "bin", "nvcc"), *NVCC_FLAGS, "-o", tmp,
-           SOURCE]
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
+    tmp = f"{so}.{os.getpid()}"
+    with open(f"{tmp}.cu", "wb") as fh:
+        fh.write(src)
+    count = parts(src)
+    objs = [f"{tmp}.{k}.o" for k in range(count)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-c", *([f"-DGPZ_PART={k}"] if count > 1 else []),
+         "-o", obj, f"{tmp}.cu"], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for k, obj in enumerate(objs)]
+    logs = []
+    for k, proc in enumerate(procs):
+        out, _ = proc.communicate()
+        logs.append(f"part {k}: exit {proc.returncode} after "
+                    f"{time.perf_counter() - t0:.2f} s\n{out}")
+    failed = [k for k, proc in enumerate(procs) if proc.returncode]
+    if not failed:
+        res = subprocess.run([nvcc, "-shared", "-o", f"{tmp}.tmp", *objs],
+                             capture_output=True, text=True, check=False)
+        logs.append(f"link: exit {res.returncode}\n{res.stdout}{res.stderr}")
+        if res.returncode:
+            failed = ["link"]
     with open(so[:-3] + ".log", "w") as fh:
-        fh.write(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}"
-        )
+        fh.write("".join(logs))
+    for path in (*objs, f"{tmp}.cu"):
+        if os.path.exists(path):
+            os.remove(path)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed}) building {name}:\n"
+                           + "".join(logs)[-6000:])
     # atomic: a concurrent build never loads a partial file
-    os.replace(tmp, so)
+    os.replace(f"{tmp}.tmp", so)
     return so
 
 
@@ -166,8 +204,8 @@ def _check(X, psi, P, Sigma, logdet_Sigma=None, g=None):
 
 
 def _workspace(lib, X, n, m, sets, d, backward):
-    """The wide variant's global scratch for a call (None where its
-    workspaces lie in shared memory, and for d <= 8)."""
+    """The strided-workspace kernels' global scratch for a call (None where
+    their workspaces lie in shared memory, and for d <= 32)."""
     is_double = int(X.dtype == torch.float64)
     elems = lib.gpz_vc_lnphi_workspace(n, m, sets, d, is_double,
                                        int(backward))
@@ -282,8 +320,9 @@ def vc_lnphi_complete(X, psi, P, Sigma, logdet_Sigma, sets=1):
     """lnPHI (n, m) for complete data with full-covariance input noise.
 
     X (n, d); psi (n, d, d); P (m, d); Sigma (m, d, d); logdet_Sigma (m,):
-    contiguous, one dtype (float32 or float64), one device, d >= 1 (d <= 8
-    runs the kernels' register-held templates, wider d their wide variant).
+    contiguous, one dtype (float32 or float64), one device, d >= 1 (the
+    kernels' register templates to d = 18 forward and 13 backward, their
+    thread groups to d = 32, a strided workspace past that).
     Only the lower triangles of psi and Sigma are read. Differentiable in P,
     Sigma and logdet_Sigma; X and psi are data. `sets`: the bases are that
     many equal runs, one per parameter set of a batched evaluation, and the

@@ -451,7 +451,8 @@ def transcription_case(case, trained_site):
 def jax_side(arrays, g=None):
     """JAX's lnPHI or, given a cotangent, its (dP, dSigma): gpz_tpu's kernels
     in interpret mode up to d=5, and tests/test_ops.py's dense reference with
-    its autodiff at d=8, where interpret mode takes several seconds a case."""
+    its autodiff past that (d = 8 to 16), where interpret mode takes several
+    seconds a case."""
     X, psi, P, Sigma, logdet = map(jnp.asarray, arrays)
     if arrays[0].shape[1] <= 5:
         if g is None:
@@ -464,7 +465,8 @@ def jax_side(arrays, g=None):
 
 
 TRANSCRIPTION_CASES = (
-    [("random", d, dt) for dt in ("float64", "float32") for d in (1, 2, 5, 8)]
+    [("random", d, dt) for dt in ("float64", "float32")
+     for d in (1, 2, 5, 8, 9, 12, 16)]
     + [("small-pivot", 8, "float32"), "trained"])
 
 
