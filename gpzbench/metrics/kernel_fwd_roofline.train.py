@@ -1,0 +1,6 @@
+"""The forward kernel's share of its roofline over the training window."""
+from gpzbench.readers import kernel_roofline
+
+
+def read(r):
+    return kernel_roofline(r, "fwd")
