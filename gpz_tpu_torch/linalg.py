@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from gpz_tpu_torch.trace import count
+
 # Escalating relative jitter levels tried when a Cholesky factorization fails.
 _JITTERS = (0.0, 1e-12, 1e-10, 1e-8, 1e-6, 1e-4, 1e-2)
 
@@ -42,6 +44,7 @@ def safe_cholesky(A: torch.Tensor, batch_dims: int = 0) -> torch.Tensor:
     L0 = _cholesky_or_nan(A)
     lead = A.shape[:batch_dims]
     ok0 = torch.isfinite(L0).reshape(*lead, -1).all(-1)
+    count("reads.cholesky")
     if bool(ok0.all()):
         return L0
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)

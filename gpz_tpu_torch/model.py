@@ -13,10 +13,8 @@ told otherwise; `train` and `predict` run where the model's parameters are.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
-import os
 import time
 from typing import Optional
 
@@ -33,6 +31,7 @@ from gpz_tpu_torch.prior import get_prior
 from gpz_tpu_torch.optim import minimize
 from gpz_tpu_torch import datautils
 from gpz_tpu_torch import predict as predict_mod
+from gpz_tpu_torch.trace import count, profiled, span
 
 
 @dataclasses.dataclass
@@ -219,7 +218,8 @@ def _resolve(flat, score, unravel, data: Dataset, cfg64: ModelConfig,
     computed in float64 on the training rows, everything stored in `dtype`."""
     dt = getattr(torch, dtype)
     params = unravel(flat)
-    post = posterior(params, data, cfg64, complete=complete)
+    with span("gpz.posterior"):
+        post = posterior(params, data, cfg64, complete=complete)
     priors = get_prior(params, data, cfg64, complete=complete)
     return ParamSet(
         params=unravel(flat.to(dt).clone()),
@@ -357,69 +357,79 @@ def train(
                            verbose=verbose)
     cfg = model.cfg
     device = model.last.params.P.device
-    X = np.asarray(X, dtype=np.float64)
-    Y = np.asarray(Y, dtype=np.float64)
-    if Y.ndim == 1:
-        Y = Y[:, None]
-    n = X.shape[0]
-    if training is None:
-        training = np.ones(n, dtype=bool)
-    if omega is None:
-        omega = np.ones(n)
+    with profiled(device), span("gpz.train", m=cfg.m) as root:
+        with span("gpz.train.data"):
+            X = np.asarray(X, dtype=np.float64)
+            Y = np.asarray(Y, dtype=np.float64)
+            if Y.ndim == 1:
+                Y = Y[:, None]
+            n = X.shape[0]
+            if training is None:
+                training = np.ones(n, dtype=bool)
+            if omega is None:
+                omega = np.ones(n)
 
-    Xn = (X - model.muX[None, :]) / model.sdX[None, :]
-    Yc = Y - model.muY[None, :]
-    psi_c = datautils.fix_psi(psi, n, model.sdX, cfg.full_cov)
+            Xn = (X - model.muX[None, :]) / model.sdX[None, :]
+            Yc = Y - model.muY[None, :]
+            psi_c = datautils.fix_psi(psi, n, model.sdX, cfg.full_cov)
 
-    f64 = torch.float64
-    cfg64 = dataclasses.replace(cfg, dtype="float64")
-    data_tr = _make_dataset(Xn, Yc, psi_c, omega, training, f64, device)
-    complete_tr = _complete(data_tr)
-    has_valid = validation is not None and bool(np.any(validation))
-    if has_valid:
-        data_va = _make_dataset(Xn, Yc, psi_c, omega, validation, f64, device)
-        complete_va = _complete(data_va)
+            f64 = torch.float64
+            cfg64 = dataclasses.replace(cfg, dtype="float64")
+            data_tr = _make_dataset(Xn, Yc, psi_c, omega, training, f64,
+                                    device)
+            complete_tr = _complete(data_tr)
+            has_valid = validation is not None and bool(np.any(validation))
+            if has_valid:
+                data_va = _make_dataset(Xn, Yc, psi_c, omega, validation,
+                                        f64, device)
+                complete_va = _complete(data_va)
 
-    flat0, unravel = model.last.params.astype(f64).flatten()
-    x_best0 = model.best.params.astype(f64).flatten()[0]
+            flat0, unravel = model.last.params.astype(f64).flatten()
+            x_best0 = model.best.params.astype(f64).flatten()[0]
+        root.set(rows=data_tr.n)
 
-    fun = _objective(unravel, data_tr, cfg64, complete_tr)
+        fun = _objective(unravel, data_tr, cfg64, complete_tr)
 
-    score_fn = None
-    if has_valid:
-        def score_fn(flat, aux):
-            rmse, ll = holdout_metrics(unravel(flat), aux.w, data_va, cfg64,
-                                       complete=complete_va)
-            return ll, {
-                "valid_rmse": rmse,
-                "valid_ll": ll,
-                "train_rmse": aux.train_rmse,
-                "train_ll": aux.train_ll,
-            }
+        score_fn = None
+        if has_valid:
+            def score_fn(flat, aux):
+                rmse, ll = holdout_metrics(unravel(flat), aux.w, data_va,
+                                           cfg64, complete=complete_va)
+                return ll, {
+                    "valid_rmse": rmse,
+                    "valid_ll": ll,
+                    "train_rmse": aux.train_rmse,
+                    "train_ll": aux.train_ll,
+                }
 
-    with _profiled(device):
-        res = minimize(
-            fun,
-            flat0,
-            history=tc.history,
-            max_iter=tc.max_iter,
-            opt_tol=tc.opt_tol,
-            prog_tol=tc.prog_tol,
-            c1=tc.c1,
-            c2=tc.c2,
-            max_ls=tc.max_ls,
-            score_fn=score_fn,
-            max_attempts=tc.max_attempts,
-            init_best_score=(model.best.score
-                             if math.isfinite(model.best.score) else None),
-            x_best0=x_best0,
-            iter_callback=_LiveRowPrinter(has_valid) if tc.verbose else None,
-        )
+        with span("gpz.train.minimize"):
+            res = minimize(
+                fun,
+                flat0,
+                history=tc.history,
+                max_iter=tc.max_iter,
+                opt_tol=tc.opt_tol,
+                prog_tol=tc.prog_tol,
+                c1=tc.c1,
+                c2=tc.c2,
+                max_ls=tc.max_ls,
+                score_fn=score_fn,
+                max_attempts=tc.max_attempts,
+                init_best_score=(model.best.score
+                                 if math.isfinite(model.best.score)
+                                 else None),
+                x_best0=x_best0,
+                iter_callback=(_LiveRowPrinter(has_valid) if tc.verbose
+                               else None),
+            )
 
-    state = (unravel, data_tr, cfg64, complete_tr, cfg.dtype)
-    last = _resolve(res.x, res.best_score if not has_valid else -math.inf,
-                    *state)
-    best = _resolve(res.x_best, res.best_score, *state)
+        state = (unravel, data_tr, cfg64, complete_tr, cfg.dtype)
+        with span("gpz.train.resolve"):
+            last = _resolve(res.x,
+                            res.best_score if not has_valid else -math.inf,
+                            *state)
+        with span("gpz.train.resolve"):
+            best = _resolve(res.x_best, res.best_score, *state)
 
     fit_info = {
         "iterations": res.iterations,
@@ -436,25 +446,6 @@ def train(
         cfg=cfg, muX=model.muX, sdX=model.sdX, muY=model.muY,
         last=last, best=best, fit_info=fit_info,
     )
-
-
-def _profiled(device: torch.device):
-    """With GPZ_PROFILE set to a directory, a torch.profiler trace of the
-    block (host and, on a CUDA device, the card's kernels) written there on
-    exit, as gpz_tpu writes a jax.profiler trace of its training; with it
-    unset, nothing."""
-    out = os.environ.get("GPZ_PROFILE")
-    if not out:
-        return contextlib.nullcontext()
-    from torch.profiler import (
-        ProfilerActivity, profile, tensorboard_trace_handler,
-    )
-
-    activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    return profile(activities=activities,
-                   on_trace_ready=tensorboard_trace_handler(out))
 
 
 def sample_weights(
@@ -528,93 +519,120 @@ def predict(
     missing value.
     """
     cfg = model.cfg
-    X = np.asarray(X, dtype=np.float64)
-    if X.ndim == 1:
-        X = X[:, None]
-    if selection is not None:
-        X = X[selection]
-        if psi is not None:
-            psi = np.asarray(psi)[selection]
-    n, d = X.shape
     pset = model.best if which_set == "best" else model.last
     dt = getattr(torch, cfg.dtype)
     device = pset.params.P.device
 
-    def dev(a):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
-                               device=device)
+    with span("gpz.predict") as root:
+        with span("gpz.predict.group"):
+            X = np.asarray(X, dtype=np.float64)
+            if X.ndim == 1:
+                X = X[:, None]
+            if selection is not None:
+                X = X[selection]
+                if psi is not None:
+                    psi = np.asarray(psi)[selection]
+            n, d = X.shape
+            Xn = (X - model.muX[None, :]) / model.sdX[None, :]
+            psi_c = datautils.fix_psi(psi, n, model.sdX, cfg.full_cov)
 
-    Xn = (X - model.muX[None, :]) / model.sdX[None, :]
-    psi_c = datautils.fix_psi(psi, n, model.sdX, cfg.full_cov)
+            mask = ~np.isnan(Xn)
+            Xz = np.where(mask, Xn, 0.0)
+            k = cfg.k
+            out = {
+                "mu": np.zeros((n, k)),
+                "nu": np.zeros((n, k)),
+                "beta_i": np.zeros((n, k)),
+                "gamma": np.zeros((n, k)),
+                "phi": np.zeros((n, cfg.m)),
+            }
+            moments_batch = _moments_batch(cfg, batch_size)
 
-    mask = ~np.isnan(Xn)
-    Xz = np.where(mask, Xn, 0.0)
-    k = cfg.k
-    out = {
-        "mu": np.zeros((n, k)),
-        "nu": np.zeros((n, k)),
-        "beta_i": np.zeros((n, k)),
-        "gamma": np.zeros((n, k)),
-        "phi": np.zeros((n, cfg.m)),
-    }
+            # group rows by missingness pattern (ref predict.m:45-56), each
+            # group in row batches
+            patterns, inverse = np.unique(mask, axis=0, return_inverse=True)
+            batches = []
+            for pi in range(patterns.shape[0]):
+                rows = np.where(inverse == pi)[0]
+                pat = patterns[pi]
+                complete = bool(pat.all())
+                bs = batch_size if (complete and psi_c is None) \
+                    else moments_batch
+                batches += [(rows[start:start + bs], pat, complete)
+                            for start in range(0, len(rows), bs)]
+        root.set(rows=n, patterns=patterns.shape[0], batches=len(batches))
 
-    # the full-covariance missing path truncates its conditioning mixture to
-    # the top MIX_TOPL responsibilities per row; a batch whose dropped mass
-    # is not negligible (flat responsibilities) is run again with the exact
-    # sum, at the price of one host read of `coverage` per guarded batch
-    guard_mix = cfg.full_cov and cfg.m > predict_mod.MIX_TOPL
+        def dev(a):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                                   device=device)
 
-    def run_batch(idx, pat, complete):
-        Xg = dev(Xz[idx])
-        if complete and psi_c is None:
-            mask_g = torch.ones_like(Xg, dtype=torch.bool)
-            return predict_mod.predict_clean(
-                pset.params, pset.post, cfg, Xg, mask_g, None, complete=True,
-            )
-        if psi_c is None:
+        def upload(idx, pat, complete):
+            """The batch on the device: (X, mask, None) on the clean path,
+            else (X, pattern, psi)."""
+            Xg = dev(Xz[idx])
+            if complete and psi_c is None:
+                return Xg, torch.ones_like(Xg, dtype=torch.bool), None
+            if psi_c is not None:
+                return Xg, dev(pat), dev(psi_c[idx])
             shape = (len(idx), d, d) if cfg.full_cov else (len(idx), d)
-            psig = torch.zeros(shape, dtype=dt, device=device)
-        else:
-            psig = dev(psi_c[idx])
-        margs = (pset.params, pset.post, pset.priors, cfg, Xg, dev(pat),
-                 psig, complete)
-        if not cfg.full_cov:
-            # the diagonal family computes its mixture exactly
-            return predict_mod.predict_moments_diag(*margs)
-        if guard_mix and not complete:
-            *res, coverage = predict_mod.predict_moments_full(
-                *margs, mix_topl=None, return_coverage=True)
-            if float(coverage) >= predict_mod.MIX_COVERAGE_MIN:
-                return res
-            return predict_mod.predict_moments_full(*margs, mix_topl=cfg.m)
-        return predict_mod.predict_moments_full(*margs)
+            return Xg, dev(pat), torch.zeros(shape, dtype=dt, device=device)
 
-    moments_batch = _moments_batch(cfg, batch_size)
+        def moments(Xg, pat_g, psig, complete, **kw):
+            with span("gpz.predict.moments"):
+                if complete and psi_c is None:
+                    return predict_mod.predict_clean(
+                        pset.params, pset.post, cfg, Xg, pat_g, None,
+                        complete=True,
+                    )
+                margs = (pset.params, pset.post, pset.priors, cfg, Xg, pat_g,
+                         psig, complete)
+                if not cfg.full_cov:
+                    # the diagonal family computes its mixture exactly
+                    return predict_mod.predict_moments_diag(*margs)
+                return predict_mod.predict_moments_full(*margs, **kw)
 
-    # group rows by missingness pattern (ref predict.m:45-56)
-    patterns, inverse = np.unique(mask, axis=0, return_inverse=True)
-    with torch.no_grad():
-        for pi in range(patterns.shape[0]):
-            rows = np.where(inverse == pi)[0]
-            pat = patterns[pi]
-            complete = bool(pat.all())
-            bs = batch_size if (complete and psi_c is None) else moments_batch
-            for start in range(0, len(rows), bs):
-                idx = rows[start : start + bs]
-                res = run_batch(idx, pat, complete)
-                for key, val in zip(("mu", "nu", "beta_i", "gamma", "phi"),
-                                    res):
-                    out[key][idx] = val.cpu().numpy()
+        # the full-covariance missing path truncates its conditioning
+        # mixture to the top MIX_TOPL responsibilities per row; a batch whose
+        # dropped mass is not negligible (flat responsibilities) is run again
+        # with the exact sum, at the price of one host read of `coverage` per
+        # guarded batch
+        guard_mix = cfg.full_cov and cfg.m > predict_mod.MIX_TOPL
 
-    # gamma = E[(phi'w)^2] - (E[phi'w])^2 >= 0 mathematically, but the
-    # moment-matched difference can come out epsilon-negative; nu likewise
-    # via the iSigma_w quadratic form. Clamp at zero so sigma stays a valid
-    # variance (sigma = nu+beta_i+gamma, predict.m:72)
-    out["gamma"] = np.maximum(out["gamma"], 0.0)
-    out["nu"] = np.maximum(out["nu"], 0.0)
-    sigma = out["nu"] + out["beta_i"] + out["gamma"]
-    mu = out["mu"] + model.muY[None, :]
-    return Prediction(
-        mu=mu, sigma=sigma, nu=out["nu"], beta_i=out["beta_i"],
-        gamma=out["gamma"], phi=out["phi"],
-    )
+        def run_batch(idx, pat, complete):
+            with span("gpz.predict.upload"):
+                batch = upload(idx, pat, complete)
+            if not guard_mix or complete:
+                return moments(*batch, complete)
+            *res, coverage = moments(*batch, complete, mix_topl=None,
+                                     return_coverage=True)
+            with span("gpz.predict.guard"):
+                count("reads.coverage")
+                if float(coverage) >= predict_mod.MIX_COVERAGE_MIN:
+                    return res
+                count("predict.escalations")
+                return moments(*batch, complete, mix_topl=cfg.m)
+
+        with torch.no_grad():
+            for idx, pat, complete in batches:
+                with span("gpz.predict.batch", rows=len(idx)):
+                    res = run_batch(idx, pat, complete)
+                    with span("gpz.predict.readback"):
+                        for key, val in zip(
+                                ("mu", "nu", "beta_i", "gamma", "phi"), res):
+                            count("reads.readback")
+                            out[key][idx] = val.cpu().numpy()
+
+        with span("gpz.predict.finish"):
+            # gamma = E[(phi'w)^2] - (E[phi'w])^2 >= 0 mathematically, but
+            # the moment-matched difference can come out epsilon-negative;
+            # nu likewise via the iSigma_w quadratic form. Clamp at zero so
+            # sigma stays a valid variance (sigma = nu+beta_i+gamma,
+            # predict.m:72)
+            out["gamma"] = np.maximum(out["gamma"], 0.0)
+            out["nu"] = np.maximum(out["nu"], 0.0)
+            sigma = out["nu"] + out["beta_i"] + out["gamma"]
+            mu = out["mu"] + model.muY[None, :]
+            return Prediction(
+                mu=mu, sigma=sigma, nu=out["nu"], beta_i=out["beta_i"],
+                gamma=out["gamma"], phi=out["phi"],
+            )

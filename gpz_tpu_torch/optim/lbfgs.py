@@ -50,6 +50,8 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from gpz_tpu_torch.trace import count, span
+
 # status codes
 STATUS_RUNNING = 0
 STATUS_OPTIMAL = 1          # max|g| <= opt_tol
@@ -62,8 +64,10 @@ STATUS_PLATEAU = 7          # gpz_tpu's patience exit; never returned here
 
 _F = np.float64
 
-# the requests a lane makes of its driver
+# the requests a lane makes of its driver, and the span of each answer
 _EVAL, _READ, _SCORE = "eval", "read", "score"
+_SPANS = {_EVAL: "gpz.lbfgs.eval", _READ: "gpz.lbfgs.read",
+          _SCORE: "gpz.lbfgs.score"}
 
 
 @dataclasses.dataclass
@@ -81,6 +85,7 @@ class MinimizeResult:
 def _scalars(*tensors) -> list:
     """0-d tensors (or host numbers) to float64 host scalars, in one
     transfer from the device of the first tensor among them."""
+    count("reads.lbfgs")
     dev = next((t.device for t in tensors if isinstance(t, torch.Tensor)),
                "cpu")
     return [_F(v) for v in torch.stack(
@@ -302,12 +307,13 @@ def minimize(
         request = next(lane)
         while True:
             kind = request[0]
-            if kind == _EVAL:
-                reply = fun(request[1])
-            elif kind == _SCORE:
-                reply = score_fn(request[1], request[2])
-            else:
-                reply = _scalars(*request[1])
+            with span(_SPANS[kind]):
+                if kind == _EVAL:
+                    reply = fun(request[1])
+                elif kind == _SCORE:
+                    reply = score_fn(request[1], request[2])
+                else:
+                    reply = _scalars(*request[1])
             try:
                 request = lane.send(reply)
             except StopIteration as stop:
@@ -375,29 +381,34 @@ def minimize_batched(
             kind = next(k for k in (_READ, _SCORE, _EVAL)
                         if any(q[0] == k for q in requests.values()))
             ids = [r for r, q in requests.items() if q[0] == kind]
-            if kind == _READ:
-                vals = _scalars(*(t for r in ids for t in requests[r][1]))
-                replies, at = [], 0
-                for r in ids:
-                    n = len(requests[r][1])
-                    replies.append(vals[at:at + n])
-                    at += n
-            else:
-                X = _rows([requests[r][1] for r in ids])
-                if kind == _SCORE:
-                    score, extras = score_fn(X, _tree(
-                        lambda *ts: torch.stack(ts),
-                        *(requests[r][2] for r in ids)))
-                    replies = [(score[j], {k: v[j] for k, v in extras.items()})
-                               for j in range(len(ids))]
-                else:
-                    f, g, aux = fun(X)
-                    # a lane's gradient in storage of its own, as alone
-                    replies = [(f[j], g[j].clone(), _tree(lambda t: t[j], aux))
-                               for j in range(len(ids))]
+            with span(_SPANS[kind]):
+                replies = _answer(kind, [requests[r] for r in ids], fun,
+                                  score_fn)
             for r, reply in zip(ids, replies):
                 advance(r, reply)
     return results
+
+
+def _answer(kind, requests, fun, score_fn) -> list:
+    """The replies to lanes' requests of one kind: their reads in one
+    transfer, their points in one call of fun or score_fn."""
+    if kind == _READ:
+        vals = _scalars(*(t for q in requests for t in q[1]))
+        replies, at = [], 0
+        for q in requests:
+            replies.append(vals[at:at + len(q[1])])
+            at += len(q[1])
+        return replies
+    X = _rows([q[1] for q in requests])
+    if kind == _SCORE:
+        score, extras = score_fn(X, _tree(lambda *ts: torch.stack(ts),
+                                          *(q[2] for q in requests)))
+        return [(score[j], {k: v[j] for k, v in extras.items()})
+                for j in range(len(requests))]
+    f, g, aux = fun(X)
+    # a lane's gradient in storage of its own, as alone
+    return [(f[j], g[j].clone(), _tree(lambda t: t[j], aux))
+            for j in range(len(requests))]
 
 
 def _rows(vectors) -> torch.Tensor:

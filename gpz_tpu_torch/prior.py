@@ -16,6 +16,7 @@ from gpz_tpu_torch.config import ModelConfig
 from gpz_tpu_torch.dataset import Dataset
 from gpz_tpu_torch.params import GPzParams
 from gpz_tpu_torch.phi import log_phi
+from gpz_tpu_torch.trace import count, span
 
 
 def get_prior(
@@ -27,7 +28,7 @@ def get_prior(
     tol: float = 1e-10,
 ) -> torch.Tensor:
     """EM fixed point for mixture weights over the m bases, (m,)."""
-    with torch.no_grad():
+    with span("gpz.prior.em"), torch.no_grad():
         ln_n = log_phi(params, cfg, data.X, data.mask, data.psi,
                        complete)[1]
         # log-sum-exp stabilized responsibilities; only N stays held through
@@ -45,4 +46,5 @@ def get_prior(
                           / torch.linalg.norm(prior + new))
             prior = new
             it += 1
+            count("prior.em_iterations")
     return prior

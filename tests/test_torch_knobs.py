@@ -205,7 +205,10 @@ def test_mix_topl_at_m_equals_the_escalated_sum(env, models):
 
 
 def test_gpz_profile_writes_a_trace(models, monkeypatch, tmp_path):
-    jm, tm, _, _ = models
+    """The trace covers the whole of train (its data, the L-BFGS phases and
+    both resolves) and carries the program's spans; any profiler session,
+    an operator's around predict too, turns the spans on."""
+    jm, tm, X, psi_s = models
     mags, errs, z = synthetic_sdss(n=TRAIN_ROWS, filters=5, seed=4)
     psi = np.einsum("ni,ij->nij", errs ** 2, np.eye(5))
     monkeypatch.setenv("GPZ_PROFILE", str(tmp_path))
@@ -218,6 +221,19 @@ def test_gpz_profile_writes_a_trace(models, monkeypatch, tmp_path):
         events = json.load(fh)["traceEvents"]
     assert any("vc_lnphi" in str(e.get("name", "")) or
                "aten::" in str(e.get("name", "")) for e in events)
+    names = {str(e.get("name", "")) for e in events}
+    assert {"gpz.train", "gpz.train.data", "gpz.train.minimize",
+            "gpz.lbfgs.eval", "gpz.train.resolve", "gpz.posterior",
+            "gpz.prior.em"} <= names
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        gpz_tpu_torch.predict(X, tm, psi=psi_s)
+    served = tmp_path / "predict.json"
+    prof.export_chrome_trace(str(served))
+    with open(served) as fh:
+        names = {str(e.get("name", "")) for e in json.load(fh)["traceEvents"]}
+    assert {"gpz.predict", "gpz.predict.batch", "gpz.predict.moments",
+            "gpz.predict.readback"} <= names
 
 
 @pytest.mark.parametrize("hetero", [True, False], ids=["hetero", "homo"])
