@@ -568,14 +568,16 @@ def predict(
 
         def upload(idx, pat, complete):
             """The batch on the device: (X, mask, None) on the clean path,
-            else (X, pattern, psi)."""
+            else (X, pattern, psi). The full family keys its pattern tables
+            by the pattern's values, so its pattern stays on the host."""
             Xg = dev(Xz[idx])
             if complete and psi_c is None:
                 return Xg, torch.ones_like(Xg, dtype=torch.bool), None
+            pat_g = torch.from_numpy(pat) if cfg.full_cov else dev(pat)
             if psi_c is not None:
-                return Xg, dev(pat), dev(psi_c[idx])
+                return Xg, pat_g, dev(psi_c[idx])
             shape = (len(idx), d, d) if cfg.full_cov else (len(idx), d)
-            return Xg, dev(pat), torch.zeros(shape, dtype=dt, device=device)
+            return Xg, pat_g, torch.zeros(shape, dtype=dt, device=device)
 
         def moments(Xg, pat_g, psig, complete, **kw):
             with span("gpz.predict.moments"):

@@ -35,6 +35,9 @@ call, on the rows of several components at once.
 from __future__ import annotations
 
 import os
+import threading
+import weakref
+from typing import NamedTuple
 
 import torch
 
@@ -43,6 +46,7 @@ from gpz_tpu_torch.params import GPzParams
 from gpz_tpu_torch.phi import design_matrix
 from gpz_tpu_torch.linalg import masked_psd, quad_logdet_psd, unrolled_inv_psd
 from gpz_tpu_torch.ops.vc_phi import vc_lnphi_complete
+from gpz_tpu_torch.trace import count
 
 
 def _v_or_zero(params: GPzParams, cfg: ModelConfig):
@@ -321,6 +325,176 @@ def _mixture_sum(Xh, Ph, pio, Pb, Sb):
     return acc
 
 
+class _Tables:
+    """What predict_moments_full computes from one parameter set alone, in
+    one pair of chain dtypes (variance, mixture), kept with the set and
+    found again by every later call: the basis tables, the pair tables of
+    one block size, and the tables of each band pattern served. Each is
+    built by the ops, on the shapes, that a call rebuilding it would run,
+    so a call gives the same bits either way. They carry no autograd
+    history.
+
+    `inputs` are weak references to what the tables are built from (P,
+    gamma, v, b, w, iSigma_w) and `versions` their version counters:
+    another tensor, an in-place edit or other chain dtypes make new
+    tables."""
+
+    def __init__(self, inputs, versions, dtypes):
+        self.inputs, self.versions, self.dtypes = inputs, versions, dtypes
+        self.pairs = (None,)       # (B, _pair_tables(self, B, ...))
+        self.patterns = {}         # pattern tuple -> _pattern_tables(...)
+
+    def current(self, inputs, versions, dtypes) -> bool:
+        return (self.dtypes == dtypes and self.versions == versions
+                and all(t is (None if r is None else r())
+                        for r, t in zip(self.inputs, inputs)))
+
+
+#: band patterns whose tables one parameter set keeps; a new one past this
+#: drops the oldest's
+PATTERN_TABLES_MAX = 64
+
+#: id(params) -> the _Tables of that GPzParams; the entry goes when the
+#: params are freed. _LOCK serialises finding and building them.
+_TABLES: dict = {}
+_LOCK = threading.Lock()
+
+
+def _build_basis(tab, params, post, cfg, vdt, mdt):
+    """The basis tables: the responsibilities', the expected activations'
+    and the contractions' model-only inputs."""
+    cdt = params.P.dtype                      # contraction dtype
+    tab.P = params.P.to(vdt)
+    G = params.expand_gamma(cfg).to(vdt)      # (m, d, d)
+    tab.iSig = torch.einsum("mij,mik->mjk", G, G)  # (m, d, d)
+    tab.Sigma, logdet_iSig = unrolled_inv_psd(tab.iSig)
+    tab.lnz = -0.5 * logdet_iSig              # = +0.5 logdet Sigma, (m,)
+    tab.lnz2 = 2.0 * tab.lnz                  # the complete PHI's logdet
+    tab.z = torch.exp(tab.lnz)                # the mixture PHI's scale
+    tab.P_mix, tab.Sigma_mix = tab.P.to(mdt), tab.Sigma.to(mdt)
+    tab.w = post.w.to(cdt)
+    tab.v = _v_or_zero(params, cfg).to(cdt)
+    tab.b = params.b.to(vdt)
+    tab.iSW = post.iSigma_w.to(cdt)
+
+
+class _PairBlock(NamedTuple):
+    """One i-block's pair tables (predictCov.m:101-113,180-218): the pairs
+    (i, j), i in the block, as bases (c_ij, C_ij; in the mixture dtype
+    too), their weights exp(lnZ_ij), and the block's rows of w, v and
+    iSigma_w."""
+
+    cij: torch.Tensor          # (B * m, d)
+    Cij: torch.Tensor          # (B * m, d, d)
+    cij_mix: torch.Tensor
+    Cij_mix: torch.Tensor
+    Z: torch.Tensor            # (B, m)
+    w: torch.Tensor            # (B, k)
+    v: torch.Tensor            # (B, k)
+    iSW: torch.Tensor          # (k, B, m)
+
+
+def _pair_tables(tab, B, mdt):
+    """(a _PairBlock per block of B basis indices i, the zero logdets of a
+    block's pairs). Padded i-side rows contribute exactly zero: w / v /
+    iSigma_w rows are zero, and identity covariances keep every padded
+    density finite."""
+    P, iSig, Sigma, lnz = tab.P, tab.iSig, tab.Sigma, tab.lnz
+    m, d = P.shape
+    nb = -(-m // B)
+    pad = nb * B - m
+    fpad = torch.nn.functional.pad
+    eye_pad = torch.eye(d, dtype=P.dtype, device=P.device).expand(pad, d, d)
+    PiS = torch.einsum("mi,mij->mj", P, iSig)  # (m, d)
+    P_i = fpad(P, (0, 0, 0, pad))
+    PiS_i = fpad(PiS, (0, 0, 0, pad))
+    iSig_i = torch.cat([iSig, eye_pad])
+    Sig_i = torch.cat([Sigma, eye_pad])
+    lnz_i = fpad(lnz, (0, pad))
+    w_i = fpad(tab.w, (0, 0, 0, pad))
+    v_i = fpad(tab.v, (0, 0, 0, pad))
+    iSW_i = fpad(tab.iSW, (0, 0, 0, pad))
+    blocks = []
+    for i0 in range(0, nb * B, B):
+        sl = slice(i0, i0 + B)
+        Cij, _ = unrolled_inv_psd(iSig_i[sl][:, None] + iSig[None])
+        cij = torch.einsum("bma,bmac->bmc", PiS_i[sl][:, None, :] + PiS[None],
+                           Cij)                                # (B, m, d)
+        quad_p, ld_p = quad_logdet_psd(Sig_i[sl][:, None] + Sigma[None],
+                                       P_i[sl][:, None, :] - P[None, :, :])
+        lnZij = lnz_i[sl][:, None] + lnz[None, :] - 0.5 * quad_p - 0.5 * ld_p
+        cij = cij.reshape(B * m, d).contiguous()
+        Cij = Cij.reshape(B * m, d, d)
+        blocks.append(_PairBlock(
+            cij, Cij, cij.to(mdt), Cij.to(mdt), torch.exp(lnZij),
+            w_i[sl], v_i[sl], iSW_i[:, sl]))
+    return blocks, P.new_zeros(B * m)
+
+
+def _pattern_tables(tab, pattern):
+    """A band pattern's tables: the observed indicator on the device (as
+    bool and in the chain dtype) and the conditional imputation per basis
+    (predictCov.m:169-174), in PRECISION form: the covariance form
+    cond_cov = Sigma - J Sigma is a catastrophic cancellation at trained
+    models' covariance scales (indefinite cond_cov, NaN logdets
+    downstream). Instead
+        cond_cov = inv(iSig_uu)  (embedded on the unobserved block)
+        J = M - cond_cov iSig M  (so J_oo = I,
+                                  J_uo = -inv(iSig_uu) iSig_uo
+                                       = Sigma_uo Sigma_oo^-1)
+    the same math without subtracting large equals, PSD by construction."""
+    m, d = tab.P.shape
+    obs = torch.tensor(pattern, dtype=torch.bool, device=tab.P.device)
+    om = obs.to(tab.P.dtype)
+    um = 1.0 - om
+    Binv, _ = unrolled_inv_psd(masked_psd(tab.iSig, (~obs).expand(m, d)))
+    cond_cov = Binv * (um[None, :, None] * um[None, None, :])
+    J = torch.diag(om)[None] - (
+        torch.einsum("mij,mjk->mik", cond_cov, tab.iSig) * om[None, None, :])
+    return obs, om, cond_cov, J
+
+
+def _model_tables(params, post, cfg, vdt, mdt, B, pattern):
+    """(the parameter set's _Tables, its _pair_tables of block size B, the
+    _pattern_tables of `pattern` or None if it is None): found, or built
+    and kept. Counts predict.tables_built once per group built (basis,
+    pairs, a pattern), or predict.tables_reused once if everything was
+    found."""
+    inputs = (params.P, params.gamma, params.v, params.b, post.w,
+              post.iSigma_w)
+    versions = tuple(None if t is None else t._version for t in inputs)
+    dtypes = (vdt, mdt)
+    key = id(params)
+    tab = _TABLES.get(key)
+    built = 0
+    with _LOCK, torch.no_grad():
+        if tab is None or not tab.current(inputs, versions, dtypes):
+            if tab is None:
+                weakref.finalize(params, _TABLES.pop, key, None)
+            tab = _TABLES[key] = _Tables(
+                tuple(None if t is None else weakref.ref(t) for t in inputs),
+                versions, dtypes)
+            _build_basis(tab, params, post, cfg, vdt, mdt)
+            built += 1
+        if tab.pairs[0] != B:
+            tab.pairs = (B, *_pair_tables(tab, B, mdt))
+            built += 1
+        pairs = tab.pairs[1:]
+        pat = None
+        if pattern is not None:
+            pat = tab.patterns.get(pattern)
+            if pat is None:
+                if len(tab.patterns) >= PATTERN_TABLES_MAX:
+                    del tab.patterns[next(iter(tab.patterns))]
+                pat = tab.patterns[pattern] = _pattern_tables(tab, pattern)
+                built += 1
+    if built:
+        count("predict.tables_built", built)
+    else:
+        count("predict.tables_reused")
+    return tab, pairs, pat
+
+
 def predict_moments_full(params, post, priors, cfg: ModelConfig, X,
                          mask_vec, psi, complete: bool,
                          mix_topl: int = None, return_coverage: bool = False):
@@ -335,8 +509,15 @@ def predict_moments_full(params, post, priors, cfg: ModelConfig, X,
         Psi_hat_i = J_i Psi J_i^T + Sigma_i - J_i Sigma_i
     which reduce to X_hat = x, Psi_hat = Psi when nothing is missing.
 
-    X (n, d) zero-filled; mask_vec (d,) observed indicator of the group; psi
-    (n, d, d) (zeros when none); priors (m,) enter only with missing values.
+    What depends on the model alone (Sigma, lnz, the pair tables C_ij, c_ij,
+    lnZ_ij, and per band pattern the conditional maps J and covariances) is
+    built once per parameter set and reused by every later call (_Tables);
+    each call computes only what depends on its rows.
+
+    X (n, d) zero-filled; mask_vec (d,) observed indicator of the group, on
+    the host or the device: its values key the pattern's tables, so a host
+    tensor (model.predict passes one) costs no device read; psi (n, d, d)
+    (zeros when none); priors (m,) enter only with missing values.
     mix_topl: mixture-truncation width (None: the module's MIX_TOPL).
     return_coverage: append the minimum per-row top-L responsibility mass (1
     when no truncation applies), a 0-d tensor, so model.predict can detect flat
@@ -345,29 +526,28 @@ def predict_moments_full(params, post, priors, cfg: ModelConfig, X,
     n, d = X.shape
     m = cfg.m
     vdt = variance_dtype()                    # density-chain dtype (f64)
+    mdt = mix_dtype()
     cdt = params.P.dtype                      # contraction dtype
-    P = params.P.to(vdt)
-    G = params.expand_gamma(cfg).to(vdt)      # (m, d, d)
-    w = post.w.to(cdt)
-    v = _v_or_zero(params, cfg).to(cdt)
-    b = params.b.to(vdt)
     X = X.to(vdt)
     psi = psi.to(vdt)
-
-    iSig = torch.einsum("mij,mik->mjk", G, G)  # (m, d, d)
-    Sigma, logdet_iSig = unrolled_inv_psd(iSig)
-    lnz = -0.5 * logdet_iSig                  # = +0.5 logdet Sigma, (m,)
+    # the pairwise pass (predictCov.m:101-113,180-218) is tiled over blocks
+    # of basis index i; the peak live block is (n, B, m), or with missing
+    # values the (components * n, B * m) output of one mixture launch
+    B = _block_size(n, m, 1, 0 if complete else MISSING_PAIR_BUDGET,
+                    itemsize=torch.finfo(vdt).bits // 8)
+    pattern = None if complete else tuple(mask_vec.to(torch.bool).tolist())
+    tab, (blocks, zeros_pairs), pat = _model_tables(params, post, cfg, vdt,
+                                                    mdt, B, pattern)
+    P, Sigma, w, v = tab.P, tab.Sigma, tab.w, tab.v
     coverage = X.new_ones(())
 
     if complete:
         # expected activations: exp(lnz) N(x; P, Sigma + Psi)
         # (predictCov.m:167)
-        PHI = torch.exp(vc_lnphi_complete(X, psi, P, Sigma, 2.0 * lnz))
+        PHI = torch.exp(vc_lnphi_complete(X, psi, P, Sigma, tab.lnz2))
         mix = None
     else:
-        obs = mask_vec.to(torch.bool)
-        om = obs.to(vdt)
-        um = 1.0 - om
+        obs, om, cond_cov, J = pat
         Delta = X[:, None, :] - P[None, :, :]  # (n, m, d)
         # responsibilities: N(x_o; P_o, (Sigma + Psi)_oo) (predictCov.m:167,
         # 266); the masked embedding's identity block adds zero to the logdet
@@ -377,19 +557,7 @@ def predict_moments_full(params, post, priors, cfg: ModelConfig, X,
                   + _log_priors(priors.to(vdt))[None, :])
         Pio = torch.softmax(logits, dim=1)                     # (n, m)
 
-        # conditional imputation per basis (predictCov.m:169-174), in
-        # PRECISION form: the covariance form cond_cov = Sigma - J Sigma is a
-        # catastrophic cancellation at trained models' covariance scales
-        # (indefinite cond_cov, NaN logdets downstream). Instead
-        #   cond_cov = inv(iSig_uu)  (embedded on the unobserved block)
-        #   J = M - cond_cov iSig M  (so J_oo = I,
-        #                             J_uo = -inv(iSig_uu) iSig_uo
-        #                                  = Sigma_uo Sigma_oo^-1)
-        # the same math without subtracting large equals, PSD by construction
-        Binv, _ = unrolled_inv_psd(masked_psd(iSig, (~obs).expand(m, d)))
-        cond_cov = Binv * (um[None, :, None] * um[None, None, :])
-        J = torch.diag(om)[None] - (
-            torch.einsum("mij,mjk->mik", cond_cov, iSig) * om[None, None, :])
+        # conditional imputation per basis (the pattern's J and cond_cov)
         X_hat = P[None, :, :] + torch.einsum("mij,nmj->nmi", J, Delta)
         Psi_hat = (torch.einsum("mij,njk,mlk->nmil", J, psi, J)
                    + cond_cov[None])                           # (n, m, d, d)
@@ -412,68 +580,31 @@ def predict_moments_full(params, post, priors, cfg: ModelConfig, X,
         else:
             pio_t = Pio
         # component-major and contiguous, as the kernel's wrapper wants rows
-        mdt = mix_dtype()
         mix = (X_hat.transpose(0, 1).to(mdt).contiguous(),     # (L, n, d)
                Psi_hat.transpose(0, 1).to(mdt).contiguous(),   # (L, n, d, d)
                pio_t.transpose(0, 1).to(mdt).contiguous())     # (L, n)
 
         # PHI_i = exp(lnz_i) sum_j Pio_j N(X_hat_j; P_i, Sigma_i + Psi_hat_j)
-        phi_sum = _mixture_sum(*mix, P.to(mdt), Sigma.to(mdt))
-        PHI = torch.exp(lnz)[None, :] * phi_sum.to(vdt)
+        phi_sum = _mixture_sum(*mix, tab.P_mix, tab.Sigma_mix)
+        PHI = tab.z[None, :] * phi_sum.to(vdt)
 
     PHI_c = PHI.to(cdt)
     mu = (PHI_c @ w).to(vdt)
     ElnS = (PHI_c @ v).to(vdt)
 
-    # --- pairwise pass (predictCov.m:101-113,180-218), tiled over blocks of
-    # basis index i; the peak live block is (n, B, m), or with missing values
-    # the (components * n, B * m) output of one mixture launch ---
-    PiS = torch.einsum("mi,mij->mj", P, iSig)  # (m, d)
-    B = _block_size(n, m, 1, 0 if complete else MISSING_PAIR_BUDGET,
-                    itemsize=torch.finfo(vdt).bits // 8)
-    nb = -(-m // B)
-    pad = nb * B - m
-    # padded i-side rows contribute exactly zero: w / v / iSigma_w rows are
-    # zero, and identity covariances keep every padded density finite
-    fpad = torch.nn.functional.pad
-    eye_pad = torch.eye(d, dtype=vdt, device=X.device).expand(pad, d, d)
-    P_i = fpad(P, (0, 0, 0, pad))
-    PiS_i = fpad(PiS, (0, 0, 0, pad))
-    iSig_i = torch.cat([iSig, eye_pad])
-    Sig_i = torch.cat([Sigma, eye_pad])
-    lnz_i = fpad(lnz, (0, pad))
-    w_i = fpad(w, (0, 0, 0, pad))
-    v_i = fpad(v, (0, 0, 0, pad))
-    iSW_i = fpad(post.iSigma_w.to(cdt), (0, 0, 0, pad))
-    zeros_pairs = X.new_zeros(B * m)
-
     def pair_block(i0):
-        sl = slice(i0, i0 + B)
-        Pb, PiSb, iSigb, Sigb, lzb, wb, vb = (
-            P_i[sl], PiS_i[sl], iSig_i[sl], Sig_i[sl], lnz_i[sl],
-            w_i[sl], v_i[sl],
-        )
-        iSWb = iSW_i[:, sl]                                    # (k, B, m)
-        Cij, _ = unrolled_inv_psd(iSigb[:, None] + iSig[None])  # (B, m, d, d)
-        cij = torch.einsum("bma,bmac->bmc", PiSb[:, None, :] + PiS[None],
-                           Cij)                                # (B, m, d)
-        quad_p, ld_p = quad_logdet_psd(Sigb[:, None] + Sigma[None],
-                                       Pb[:, None, :] - P[None, :, :])
-        lnZij = lzb[:, None] + lnz[None, :] - 0.5 * quad_p - 0.5 * ld_p
-
-        cij = cij.reshape(B * m, d).contiguous()
-        Cij = Cij.reshape(B * m, d, d)
+        blk = blocks[i0 // B]
         if complete:
             # Ec = N(x; c_ij, C_ij + Psi): the pairs of the block as bases
-            Ec = torch.exp(vc_lnphi_complete(X, psi, cij, Cij, zeros_pairs))
+            Ec = torch.exp(vc_lnphi_complete(X, psi, blk.cij, blk.Cij,
+                                             zeros_pairs))
         else:
             # mixture sum over l (predictCov.m:197-202,301-306); the
             # cancellation-sensitive pair table lnZij stays in vdt
-            Ec = _mixture_sum(*mix, cij.to(mix[0].dtype),
-                              Cij.to(mix[0].dtype)).to(vdt)
-        return _contract_pairs(torch.exp(lnZij)[None] * Ec.reshape(n, B, m),
-                               wb, vb, iSWb, w, v, cdt, vdt)
+            Ec = _mixture_sum(*mix, blk.cij_mix, blk.Cij_mix).to(vdt)
+        return _contract_pairs(blk.Z[None] * Ec.reshape(n, B, m),
+                               blk.w, blk.v, blk.iSW, w, v, cdt, vdt)
 
-    g_sum, V_sum, nu = _blocked_sum(pair_block, nb, B)
-    out = _assemble(mu, ElnS, g_sum, V_sum, nu, b, PHI)
+    g_sum, V_sum, nu = _blocked_sum(pair_block, len(blocks), B)
+    out = _assemble(mu, ElnS, g_sum, V_sum, nu, tab.b, PHI)
     return (*out, coverage) if return_coverage else out

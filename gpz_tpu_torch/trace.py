@@ -47,6 +47,13 @@ name (`COUNTS`) and, while spans are on, the innermost open span's count.
     prior.em_iterations  prior.get_prior's iterations, each ending in one
                          transfer (its stopping read)
     predict.escalations  batches the coverage guard re-runs exact
+    predict.tables_built predict._model_tables: one per table group built
+                         for a parameter set (its basis tables, its pair
+                         tables of a block size, a band pattern's)
+    predict.tables_reused
+                         predict._model_tables: one per call of
+                         predict_moments_full (a batch, or its exact
+                         re-run) that found every table it needs
 
 A read is counted at its site whatever the device (on CPU tensors it is no
 transfer). The resolve's posterior enqueues its device work unsynchronised;

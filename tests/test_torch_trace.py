@@ -190,7 +190,10 @@ def test_counts_per_span(runs):
         kids[r["id"]][1]["counts"]["prior.em_iterations"]
         for r in kids[train["id"]][2:])
     # predict: five outputs read back a batch, one coverage read a guarded
-    # batch, an escalation (forced) for each
+    # batch, an escalation (forced) for each; the moment chain's tables
+    # built where the first call first needs them (the basis and pair
+    # tables, each of the three missing patterns'), and found by every
+    # other call of predict_moments_full, the exact re-runs included
     for root, forced in ((pred, False), (escalated, True)):
         guarded = 0
         for b in kids[root["id"]][1:-1]:
@@ -201,10 +204,19 @@ def test_counts_per_span(runs):
                 want["reads.coverage"] = 1
                 if forced:
                     want["predict.escalations"] = 1
-            assert b["counts"] == want
+            counts = dict(b["counts"])
+            built = counts.pop("predict.tables_built", 0)
+            reused = counts.pop("predict.tables_reused", 0)
+            assert counts == want
+            if built:
+                assert root is pred and reused == 0
+            else:
+                assert reused == 1 + int(forced and g)
         assert guarded == 3    # the three patterns with a band missing
         assert root["counts"].get("predict.escalations", 0) == (
             guarded if forced else 0)
+        assert root["counts"].get("predict.tables_built", 0) == (
+            2 + 3 if root is pred else 0)
 
 
 @pytest.mark.parametrize("max_iter, tol", [(3, 1e-10), (100, 1e-4)],
