@@ -2,6 +2,12 @@
 can fail: switched on by run.py's --control and --fault, which the
 benchmark's own runs never pass. Each breaks the program underneath the
 timed path, through a module attribute that the program calls.
+
+A traffic kind's faults are its generator's `FAULTS`; a fault's plants
+are its generator's `PLANTS[name]`, or else this module's
+`_PLANTS[name]`. So a new kind declares its faults in its own file, names
+the shared faults here without redefining them, and brings plants of its
+own beside them.
 """
 
 from __future__ import annotations
@@ -10,12 +16,6 @@ import contextlib
 import importlib
 
 import numpy as np
-
-#: the faults a cell can have, by the kind of its traffic
-FAULTS = {
-    "serve": ("answer_altered",),
-    "train": ("state_unchanged", "half_batch"),
-}
 
 #: serving's lower-precision path: the moment chain and the mixture sums
 #: in float32 (the program reads both at each call)
@@ -73,11 +73,32 @@ _PLANTS = {
 }
 
 
+def of_generator(gen) -> tuple:
+    """The faults that a cell of the generator `gen`'s kind can have: its
+    FAULTS."""
+    if not hasattr(gen, "FAULTS"):
+        raise LookupError(
+            f"the generator {gen.__name__!r} has no attribute FAULTS: give it "
+            "FAULTS, the names of the faults its cells can have")
+    return tuple(gen.FAULTS)
+
+
+def _plants(name, gen):
+    own = getattr(gen, "PLANTS", {})
+    if name in own:
+        return own[name]
+    if name in _PLANTS:
+        return _PLANTS[name]
+    raise LookupError(f"no plants for the fault {name!r}: neither the "
+                      "generator's PLANTS nor faults._PLANTS has it")
+
+
 @contextlib.contextmanager
-def planted(name):
-    """The fault `name` (None: none) planted while the block runs."""
+def planted(name, gen):
+    """The fault `name` (None: none) planted while the block runs: the
+    generator `gen`'s own plants of that name, or else the shared ones."""
     undo = []
-    for module, attr, make in _PLANTS[name] if name else []:
+    for module, attr, make in _plants(name, gen) if name else []:
         mod = importlib.import_module(module)
         undo.append((mod, attr, getattr(mod, attr)))
         setattr(mod, attr, make(undo[-1][2]))

@@ -11,7 +11,24 @@ A generator module has four functions:
   end_to_end(state, record)      {metric: value} of the cell's metrics
   check(state, record)           [(name, value, limit)] against the
                                  reference, run once the window closed
-and may keep attributes on its record for the readers (`Reading`).
+and may keep attributes on its record for the readers (`Reading`). It
+declares the faults its cells can have (faults.py):
+  FAULTS                         names of the faults, shared or its own
+  PLANTS                         {name: [(module, attribute, wrapper)]},
+                                 optional, for faults of its own
+
+A new cell joins by these steps alone, none of which edits a file or an
+entry that is there:
+  1. new files: its configuration (configs/), its traffic mix
+     (traffic/<traffic>.json), the generator of a new kind
+     (traffic/<kind>.py), its own file (workloads/<cell>.json: the
+     limits and sizes of its check) and the readers of new per-layer
+     metrics (metrics/<metric>.py);
+  2. new entries in BENCHMARK.json: the configuration, the cell and
+     any new metric;
+  3. its name appended to the `workloads` list of each end-to-end metric
+     that its generator reports, and of each per-layer metric whose
+     reader applies to it.
 """
 
 from __future__ import annotations
@@ -57,6 +74,12 @@ class Cell:
     spec: dict          # the cell's file: limits and sizes of its check
     entry: dict         # the cell's entry in BENCHMARK.json
     bench: dict
+
+
+def generator(kind: str):
+    """The generator module of traffic kind `kind` (traffic/<kind>.py)."""
+    return load_module(os.path.join(HERE, "traffic", kind + ".py"),
+                       "gpzbench_traffic_" + kind)
 
 
 def find_cell(bench: dict, name: str, root: str = ROOT) -> Cell:
@@ -152,12 +175,10 @@ def _run(cell, ctx, seconds, t_start):
 
     from gpzbench import faults, probes as probes_mod, trace as trace_mod
 
-    gen = load_module(os.path.join(HERE, "traffic",
-                                   cell.traffic["kind"] + ".py"),
-                      "gpzbench_traffic_" + cell.traffic["kind"])
+    gen = generator(cell.traffic["kind"])
     cuda = ctx.device.type == "cuda"
     probes = probes_mod.Probes(cell.cfg["m"]) if ctx.trace else None
-    with faults.planted(ctx.fault):
+    with faults.planted(ctx.fault, gen):
         state = gen.setup(ctx)
         gc.collect()
         peak = 0

@@ -59,7 +59,7 @@ def parse(argv=None):
     ap.add_argument("--control", action="store_true",
                     help="run the program's lower-precision path")
     ap.add_argument("--fault", default=None,
-                    help="plant this fault (faults.FAULTS)")
+                    help="plant this fault (its generator's FAULTS)")
     args = ap.parse_args(argv)
     if args.seed < 0:
         ap.error("--seed must be a non-negative integer")

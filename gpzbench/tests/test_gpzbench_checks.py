@@ -1,8 +1,11 @@
 """The check can fail. At a tiny size on the CPU, with each cell's
 committed limits: a sound run is correct; the program's lower-precision
 path (the control) is not; nor is a run with any fault the cell can have
-planted underneath its timed path (faults.FAULTS). The card test does the
-same at the cells' own sizes with a short window."""
+planted underneath its timed path (the faults of its traffic kind's
+generator, faults.of_generator). The card test does the same at the
+cells' own sizes with a short window."""
+
+import types
 
 import pytest
 
@@ -17,8 +20,32 @@ def _cases():
         kind = harness.find_cell(tiny.bench(), name).traffic["kind"]
         yield name, None, None
         yield name, "control", None
-        for fault in faults.FAULTS[kind]:
+        for fault in faults.of_generator(harness.generator(kind)):
             yield name, None, fault
+
+
+def test_faults_come_from_the_generator():
+    """A generator's FAULTS are its cells' faults; its own PLANTS come
+    before the shared ones; a generator without FAULTS is refused by
+    name."""
+    own = types.SimpleNamespace(
+        FAULTS=("half_batch", "mine"),
+        PLANTS={"mine": [],
+                "half_batch": [("gpzbench.faults", "of_generator",
+                                lambda real: "planted")]})
+    assert faults.of_generator(own) == ("half_batch", "mine")
+    with pytest.raises(LookupError, match="'a_new_kind' has no attribute "
+                                          "FAULTS"):
+        faults.of_generator(types.ModuleType("a_new_kind"))
+    shared = faults.of_generator
+    with faults.planted("half_batch", own):
+        assert faults.of_generator == "planted"
+    assert faults.of_generator is shared
+    with faults.planted("mine", own):
+        pass
+    with pytest.raises(LookupError, match="PLANTS"):
+        with faults.planted("unknown", own):
+            pass
 
 
 @pytest.mark.parametrize("name, control, fault", list(_cases()))

@@ -31,6 +31,9 @@ import torch
 from gpzbench import data, faults
 from gpzbench.reference import gpz as ref
 
+#: the faults a serving cell can have (faults.py)
+FAULTS = ("answer_altered",)
+
 
 def basis_condition(gamma) -> float:
     """The largest condition number of a basis's precision gamma_j' gamma_j

@@ -26,6 +26,9 @@ import torch
 from gpzbench import data, faults
 from gpzbench.reference import gpz as ref, lbfgs as ref_lbfgs
 
+#: the faults a training cell can have (faults.py)
+FAULTS = ("state_unchanged", "half_batch")
+
 #: a leaf whose reference gradient is under this share of the median
 #: leaf's moves by round-off alone, and is left out of the step's gap
 STILL_LEAF = 1e-3
