@@ -46,6 +46,7 @@ from gpz_tpu_torch.linalg import (
 # PHI_BLOCK_ROWS: the row block of the masked full-covariance pass too; it
 # bounds the working set (rows * m * d^2 elements per temporary) whatever n is
 from gpz_tpu_torch.ops.vc_phi import PHI_BLOCK_ROWS, vc_lnphi_complete
+from gpz_tpu_torch.trace import count, span
 
 _LN2 = math.log(2.0)
 _LN2PI = math.log(2.0 * math.pi)
@@ -173,6 +174,7 @@ def _log_phi_full(G, P, X, mask, psi, complete, batch_dims=0, sets=1):
     factorization of iSigma; the kernel pair's backward plans its sums for
     `sets` equal runs of the joined bases."""
     n, d = X.shape
+    count("phi.rows_total", n)
     iSig = G.transpose(-1, -2) @ G           # Gamma^T Gamma (getPHI.m:73)
     L_iSig = safe_cholesky(iSig, batch_dims)
     G, P, L_iSig = G.reshape(-1, d, d), P.reshape(-1, d), L_iSig.reshape(
@@ -201,17 +203,20 @@ def _log_phi_full(G, P, X, mask, psi, complete, batch_dims=0, sets=1):
         return ln_phi, ln_n
 
     B = PHI_BLOCK_ROWS
-    if n <= B:
-        return _masked_block(X, mask, psi, P, Sigma)
-    # each block is recomputed in the backward: autograd keeps a block's
-    # inputs and its two (rows, m) results, not its (rows, m, d, d) chain
-    outs = [
-        checkpoint(_masked_block, X[r0:r0 + B], mask[r0:r0 + B],
-                   None if psi is None else psi[r0:r0 + B], P, Sigma,
-                   use_reentrant=False)
-        for r0 in range(0, n, B)
-    ]
-    return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
+    count("phi.rows_masked", n)
+    with span("gpz.phi.masked", rows=n, blocks=-(-n // B), d=d):
+        if n <= B:
+            return _masked_block(X, mask, psi, P, Sigma)
+        # each block is recomputed in the backward: autograd keeps a block's
+        # inputs and its two (rows, m) results, not its (rows, m, d, d) chain
+        outs = [
+            checkpoint(_masked_block, X[r0:r0 + B], mask[r0:r0 + B],
+                       None if psi is None else psi[r0:r0 + B], P, Sigma,
+                       use_reentrant=False)
+            for r0 in range(0, n, B)
+        ]
+        return (torch.cat([o[0] for o in outs]),
+                torch.cat([o[1] for o in outs]))
 
 
 def design_matrix(

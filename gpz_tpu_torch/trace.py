@@ -38,6 +38,12 @@ name (`COUNTS`) and, while spans are on, the innermost open span's count.
       gpz.train.resolve (twice)              model._resolve
         gpz.posterior                        its posterior state
         gpz.prior.em                         prior.get_prior
+    gpz.phi.masked (rows, blocks, d)         phi._log_phi_full's masked
+                                             pass (data with a NaN row):
+                                             its forward, inside the span
+                                             that builds the design matrix
+                                             (gpz.lbfgs.eval, .score,
+                                             gpz.posterior, gpz.prior.em)
 
     reads.lbfgs          optim.lbfgs._scalars: one transfer per request
     reads.cholesky       linalg.safe_cholesky's finiteness check
@@ -54,6 +60,11 @@ name (`COUNTS`) and, while spans are on, the innermost open span's count.
                          predict._model_tables: one per call of
                          predict_moments_full (a batch, or its exact
                          re-run) that found every table it needs
+    phi.rows_total       phi._log_phi_full: the rows of each call, on
+                         every branch (the kernel pair, the masked pass,
+                         complete rows without psi)
+    phi.rows_masked      phi._log_phi_full: the rows of each call that
+                         takes the masked pass
 
 A read is counted at its site whatever the device (on CPU tensors it is no
 transfer). The resolve's posterior enqueues its device work unsynchronised;

@@ -178,10 +178,13 @@ def test_counts_per_span(runs):
     assert minimize["counts"]["reads.lbfgs"] == len(reads)
     for resolve in kids[train["id"]][2:]:
         em = kids[resolve["id"]][1]
-        # its iterations, each ending in a read; log_phi's one factor
-        assert set(em["counts"]) == {"prior.em_iterations", "reads.cholesky"}
+        # its iterations, each ending in a read; log_phi's one factor and
+        # its rows (complete: none through the masked pass)
+        assert set(em["counts"]) == {"prior.em_iterations", "reads.cholesky",
+                                     "phi.rows_total"}
         assert em["counts"]["prior.em_iterations"] >= 1
         assert em["counts"]["reads.cholesky"] == 1
+        assert em["counts"]["phi.rows_total"] == TRAIN_ROWS
     # a span's counts hold its children's
     for r in recs:
         for name, k in r["counts"].items():
